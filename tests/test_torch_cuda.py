@@ -1,0 +1,113 @@
+"""The port's CUDA kernels against their plain versions on the card, at
+small and ragged shapes the main path does not reach (C not a multiple of
+128, T not a multiple of the time tile, M not a multiple of 16, f32 and
+int8 caches, dense bf16 weights). Needs an NVIDIA GPU and nvcc; skipped
+elsewhere. On the card (this file imports no JAX, so no conftest):
+
+    python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_cuda.py
+"""
+import pytest
+import torch
+
+from kalle_tpu_torch.ops.kernels import _build
+from kalle_tpu_torch.ops.kernels import convnext_block as k4
+from kalle_tpu_torch.ops.kernels import decode_attention as k1
+from kalle_tpu_torch.ops.kernels import qmm as k23
+
+pytestmark = pytest.mark.cuda
+
+BF = torch.bfloat16
+
+
+@pytest.fixture
+def g():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _close(got, ref, tol):
+    assert got.dtype == ref.dtype
+    torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype,c,int8", [(BF, 200, False), (torch.float32, 136, False),
+                                          (BF, 384, True), (torch.float32, 128, True)])
+def test_decode_attention(g, dtype, c, int8):
+    L, b, nq, nkv, hd = 2, 3, 8, 2, 64
+    q = torch.randn(b, nq, hd, generator=g, device="cuda").to(dtype)
+    kt = torch.randn(L, b, nkv, hd, c, generator=g, device="cuda").to(dtype)
+    v = torch.randn(L, b, nkv, c, hd, generator=g, device="cuda").to(dtype)
+    mask = torch.rand(b, c, generator=g, device="cuda") > 0.3
+    mask[:, 0] = True
+    mask[1, 128:] = False  # a fully masked trailing tile
+    ks = vs = None
+    if int8:
+        ks = kt.float().abs().amax(3, keepdim=True) / 127
+        vs = v.float().abs().amax(4, keepdim=True) / 127
+        kt = torch.round(kt.float() / ks).to(torch.int8)
+        v = torch.round(v.float() / vs).to(torch.int8)
+        vs = vs.transpose(-1, -2).contiguous()
+    before = _build.LAUNCHES[k1.NAME]
+    got = k1.decode_attention_cached(q, kt, v, 1, mask, ks, vs)
+    assert _build.LAUNCHES[k1.NAME] == before + 1
+    _close(got, k1.decode_attention_plain(q, kt, v, 1, mask, ks, vs),
+           2e-2 if dtype == BF else 1e-4)
+
+
+@pytest.mark.parametrize("m,k,n,int8", [(5, 128, 96, True), (32, 2048, 512, True),
+                                        (40, 256, 64, False), (64, 512, 128, True)])
+def test_qmm(g, m, k, n, int8):
+    w = torch.randn(k, n, generator=g, device="cuda") * 0.05
+    scale = None
+    if int8:
+        scale = w.abs().amax(0) / 127
+        w = torch.round(w / scale).to(torch.int8)
+    else:
+        w = w.to(BF)
+    x = torch.randn(m, k, generator=g, device="cuda").to(BF)
+    got, ref = k23.qmm(x, w, scale), k23.qmm_plain(x, w, scale)
+    assert float((got.float() - ref.float()).abs().max() / ref.float().abs().max()) < 1e-2
+
+
+@pytest.mark.parametrize("m,h,f,int8", [(3, 256, 128, True), (32, 512, 1024, True),
+                                        (17, 256, 192, False)])
+def test_fused_mlp(g, m, h, f, int8):
+    def weight(*shape):
+        w = torch.randn(*shape, generator=g, device="cuda") * 0.05
+        if not int8:
+            return w.to(BF)
+        s = w.abs().amax(0) / 127
+        return {"q": torch.round(w / s).to(torch.int8), "scale": s}
+
+    ws = weight(h, f), weight(h, f), weight(f, h)
+    x = torch.randn(m, h, generator=g, device="cuda").to(BF)
+    got, ref = k23.fused_mlp(x, *ws), k23.fused_mlp_plain(x, *ws)
+    assert float((got.float() - ref.float()).abs().max() / ref.float().abs().max()) < 1e-2
+
+
+@pytest.mark.parametrize("c,t", [(16, 45), (64, 100), (128, 33), (512, 70)])
+def test_convnext_block(g, c, t):
+    def u(*shape, bound=1.0):
+        return ((torch.rand(*shape, generator=g, device="cuda") * 2 - 1) * bound).to(BF)
+
+    args = (u(c) + 1, u(7, 1, c, bound=0.4), u(c, bound=0.4), u(1, c, 4 * c, bound=c ** -0.5),
+            u(4 * c, bound=c ** -0.5), u(1, 2 * c, c, bound=(2 * c) ** -0.5),
+            u(c, bound=(2 * c) ** -0.5))
+    x = torch.randn(2, t, c, generator=g, device="cuda").to(BF)
+    _close(k4.convnext_block(x, *args), k4.convnext_block_plain(x, *args), 2e-2)
+
+
+def test_wrappers_raise_on_what_the_kernels_do_not_take(g):
+    x = torch.randn(4, 100, device="cuda").to(BF)
+    with pytest.raises(ValueError):  # K % 64 != 0
+        k23.qmm(x, torch.zeros(100, 64, dtype=torch.int8, device="cuda"))
+    with pytest.raises(ValueError):  # f32 activations
+        k23.qmm(x.float()[:, :64], torch.zeros(64, 64, dtype=torch.int8, device="cuda"))
+    with pytest.raises(ValueError):  # C=48 has no kernel
+        z = torch.zeros(48, dtype=BF, device="cuda")
+        k4.convnext_block(torch.zeros(1, 8, 48, dtype=BF, device="cuda"), z,
+                          torch.zeros(7, 1, 48, dtype=BF, device="cuda"), z,
+                          torch.zeros(1, 48, 192, dtype=BF, device="cuda"),
+                          torch.zeros(192, dtype=BF, device="cuda"),
+                          torch.zeros(1, 96, 48, dtype=BF, device="cuda"), z)
