@@ -16,7 +16,21 @@ Phases (any failure exits nonzero and prints no result):
      batch 32, 32 text ids, 128 frames, bf16 SigmaVAE decode; the early-stop
      arm; then 3 timed iterations with every kernel's launch count read and
      checked, one profiled run (device time by kernel, busy share), and a
-     small-input check of the card's path against the port's plain CPU path.
+     small-input check of the card's path against the port's plain CPU path;
+  4. train the full-width model (16 layers, hidden 2048, f32 master weights,
+     bf16 compute, sigma head) through the port's Trainer.fit on synthetic
+     sigma latents: batch 8 at bucket 512, 2 microbatches a step, flash
+     attention K5-K7 in every layer's forward and backward. Checks finite
+     losses, that the weights moved, that the final checkpoint restores and
+     K5-K7's launch counts; prints ms a step, tokens/s, the model-FLOPs
+     share, peak memory and the busy share of one profiled step. Then one
+     train_step of a small model on the card and on the CPU (plain
+     versions): loss and grads agree.
+
+Phase 2 also holds K5-K7 (flash attention forward, dq, dk/dv) against
+their plain versions at the flagship training shape (b 8, t 512, 32/8
+heads, hd 64, bf16; ragged pads, a left-padded row, a row with no valid
+key). Launch counts: K1-K4 from phase 3's run, K5-K7 from phase 4's.
 
 Prints a `kernels` JSON line, the card line, and as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
@@ -26,17 +40,22 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
+import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory
 BF16_FLOP_PER_S = 989e12     # H100 SXM dense bf16 tensor cores
 BATCH, TEXT_LEN, MAX_FRAMES, LATENT_HZ = 32, 32, 128, 7.5
 ITERS = 3
+# phase 4: batch rows, bucket length, microbatches a step, optimizer steps
+TRAIN_B, TRAIN_T, TRAIN_A, TRAIN_STEPS = 8, 512, 2, 10
 
 
 def log(*a):
@@ -72,6 +91,20 @@ def cuda_ms(fn, iters: int) -> float:
     e1.record()
     e1.synchronize()
     del graph
+    return e0.elapsed_time(e1) / iters
+
+
+def event_ms(fn, iters: int) -> float:
+    """Device time of one call timed with CUDA events around `iters` calls,
+    no graph (for calls that run autograd)."""
+    fn()
+    torch.cuda.synchronize()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    for _ in range(iters):
+        fn()
+    e1.record()
+    e1.synchronize()
     return e0.elapsed_time(e1) / iters
 
 
@@ -291,19 +324,100 @@ def check_convnext(g):
                 note="sum over one block at each decoder width, batch 32")
 
 
+def check_flash(g):
+    """K5-K7 at the flagship training shape against the plain versions."""
+    from kalle_tpu_torch.ops.kernels import flash_attention as fa
+
+    b, t, nq, nkv, hd = TRAIN_B, TRAIN_T, 32, 8, 64
+    dev, bf = "cuda", torch.bfloat16
+    q = torch.randn(b, t, nq, hd, generator=g, device=dev).to(bf)
+    k = torch.randn(b, t, nkv, hd, generator=g, device=dev).to(bf)
+    v = torch.randn(b, t, nkv, hd, generator=g, device=dev).to(bf)
+    do = torch.randn(b, t, nq, hd, generator=g, device=dev).to(bf)
+    lens = torch.randint(t // 2, t + 1, (b,), generator=g, device=dev)
+    pad = (torch.arange(t, device=dev)[None] < lens[:, None]).to(torch.int32)
+    pad[1, :100] = 0   # left padded: queries 0..99 see no valid key
+    pad[2] = 0         # a row with no valid key
+    pad[3] = 1         # one full row
+
+    o, lse = fa.flash_fwd(q, k, v, pad)
+    o_ref, lse_ref = fa.flash_attention_fwd_plain(q, k, v, pad)
+    _assert_close("flash_fwd O", o, o_ref, 2e-2, 2e-2)
+    masked = lse_ref <= fa.NEG / 2
+    if not (torch.equal(lse <= fa.NEG / 2, masked) and torch.all(o[2] == 0)):
+        raise AssertionError("flash_fwd: the rows with no valid key differ")
+    _assert_close("flash_fwd LSE", lse[~masked], lse_ref[~masked], 1e-3, 1e-4)
+    delta = fa.attention_delta(o_ref, do)
+    dq = fa.flash_bwd_dq(q, k, v, pad, do, lse_ref, delta)
+    dq_ref = fa.flash_bwd_dq_plain(q, k, v, pad, do, lse_ref, delta)
+    _assert_close("flash_bwd_dq", dq, dq_ref, 2e-2, 2e-2)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, pad, do, lse_ref, delta)
+    dk_ref, dv_ref = fa.flash_bwd_dkv_plain(q, k, v, pad, do, lse_ref, delta)
+    _assert_close("flash_bwd_dkv dK", dk, dk_ref, 2e-2, 2e-2)
+    _assert_close("flash_bwd_dkv dV", dv, dv_ref, 2e-2, 2e-2)
+    errs = {"flash_fwd": _max_err(o, o_ref), "flash_bwd_dq": _max_err(dq, dq_ref),
+            "flash_bwd_dkv": max(_max_err(dk, dk_ref), _max_err(dv, dv_ref))}
+    log(f"  flash LSE max_abs_err {_max_err(lse[~masked], lse_ref[~masked]):.4g}; "
+        f"dK {_max_err(dk, dk_ref):.4g} dV {_max_err(dv, dv_ref):.4g}")
+
+    # the library yardstick: SDPA (GQA, bool mask), forward and forward+backward
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    pos = torch.arange(t, device=dev)
+    am = ((pos[None, :] <= pos[:, None])[None, None] & pad.bool()[:, None, None, :])
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    lib_fwd = cuda_ms(lambda: sdpa(qt, kt, vt, attn_mask=am, enable_gqa=True), 10)
+    qg, kg, vg = (x.detach().clone().requires_grad_() for x in (qt, kt, vt))
+    dot_ = do.transpose(1, 2)
+
+    def sdpa_fwd_bwd():
+        sdpa(qg, kg, vg, attn_mask=am, enable_gqa=True).backward(dot_)
+
+    lib_fb = event_ms(sdpa_fwd_bwd, 10)
+    log(f"  sdpa (enable_gqa, bool mask): forward_ms {lib_fwd:.4f} "
+        f"forward+backward_ms {lib_fb:.4f}")
+
+    # work: the (query, key) pairs this pad mask leaves, per query head
+    pairs = float(pad.cumsum(-1).sum()) * nq
+    e_qkv = 2 * (q.numel() + k.numel() + v.numel())
+    e_stats = 4 * b * nq * t
+    rows = []
+    for name, replaces, fn, plain, products, nbytes, lib in (
+            ("flash_fwd", "kalle_tpu/ops/pallas/flash_attention.py:100",
+             lambda: fa.flash_fwd(q, k, v, pad),
+             lambda: fa.flash_attention_fwd_plain(q, k, v, pad),
+             2, e_qkv + 4 * b * t + 2 * o.numel() + e_stats, lib_fwd),
+            ("flash_bwd_dq", "kalle_tpu/ops/pallas/flash_attention.py:207",
+             lambda: fa.flash_bwd_dq(q, k, v, pad, do, lse_ref, delta),
+             lambda: fa.flash_bwd_dq_plain(q, k, v, pad, do, lse_ref, delta),
+             3, e_qkv + 4 * b * t + 2 * do.numel() + 2 * e_stats + 2 * q.numel(), None),
+            ("flash_bwd_dkv", "kalle_tpu/ops/pallas/flash_attention.py:226",
+             lambda: fa.flash_bwd_dkv(q, k, v, pad, do, lse_ref, delta),
+             lambda: fa.flash_bwd_dkv_plain(q, k, v, pad, do, lse_ref, delta),
+             4, e_qkv + 4 * b * t + 2 * do.numel() + 2 * e_stats
+             + 2 * (k.numel() + v.numel()), None)):
+        rows.append(dict(name=name, source="kalle_tpu_torch/csrc/flash_attention.cu",
+                         replaces=replaces, max_abs_err=errs[name], ms=cuda_ms(fn, 10),
+                         plain_ms=cuda_ms(plain, 3), library_ms=lib,
+                         work=(nbytes, pairs * products * 2 * hd)))
+    rows[0]["note"] = "SDPA forward as library_ms"
+    return rows
+
+
 def phase_kernels():
     log("# phase 2: each kernel against its plain version, main-path shapes")
     g = torch.Generator(device="cuda").manual_seed(0)
     rows = []
-    for check in (check_decode_attention, check_qmm, check_fused_mlp, check_convnext):
+    for check in (check_decode_attention, check_qmm, check_fused_mlp, check_convnext,
+                  check_flash):
         r = check(g)
+        rows.extend(r if isinstance(r, list) else [r])
+        torch.cuda.empty_cache()
+    for r in rows:
         nbytes, flops = r.pop("work")
         r["bound_ms"], r["bound_by"] = bound(nbytes, flops)
         log(f"  {r['name']}: kernel_ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} "
             f"library_ms {r['library_ms']} bound_ms {r['bound_ms']:.4f} "
             f"({r['bound_by']}) max_abs_err {r['max_abs_err']:.4g} {r.get('note', '')}")
-        rows.append(r)
-        torch.cuda.empty_cache()
     return rows
 
 
@@ -399,18 +513,7 @@ def profile_once(run):
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, _, gen_s, codec_s = run(9)
-    kernels = [e for e in prof.key_averages()
-               if str(getattr(e, "device_type", "")).endswith("CUDA")]
-    busy_us = sum(e.self_device_time_total for e in kernels)
-    wall_us = (gen_s + codec_s) * 1e6
-    if busy_us == 0:
-        log("  profile: the profiler saw no device time")
-        return
-    log(f"  profile (profiler on): wall_ms {wall_us / 1e3:.1f} device_busy_ms "
-        f"{busy_us / 1e3:.1f} busy_share {busy_us / wall_us:.3f}")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
-        log(f"    {e.self_device_time_total / 1e3:9.3f} ms {e.count:7d} calls "
-            f"{e.self_device_time_total / busy_us:6.3f}  {e.key[:90]}")
+    report_profile(prof, gen_s + codec_s, "one text -> wav run")
 
 
 def phase_reference():
@@ -453,6 +556,172 @@ def phase_reference():
         raise AssertionError("card path disagrees with the plain CPU path")
 
 
+# --------------------------------------------------------------- phase 4 ----
+
+def write_latents(root: str, n: int) -> str:
+    """n synthetic sigma latents (1, frames, 64) .npy and their meta.jsonl;
+    caption + frames fit the 512 bucket."""
+    rng = np.random.default_rng(0)
+    rows = []
+    for i in range(n):
+        path = os.path.join(root, f"lat{i}.npy")
+        frames = int(rng.integers(300, 440))
+        np.save(path, rng.normal(size=(1, frames, 64)).astype(np.float32))
+        rows.append({"id": f"u{i}", "vae": path,
+                     "caption": f"synthetic utterance {i} of the training smoke run"})
+    meta = os.path.join(root, "meta.jsonl")
+    with open(meta, "w") as f:
+        f.write("\n".join(json.dumps(r) for r in rows))
+    return meta
+
+
+def phase_train(card: str, root: str):
+    from kalle_tpu_torch.bridge import tree_leaves
+    from kalle_tpu_torch.core.config import (DataConfig, ExperimentConfig, LlamaConfig,
+                                             LlasaConfig, TrainConfig)
+    from kalle_tpu_torch.data.tokens import build_tokenizer
+    from kalle_tpu_torch.ops.kernels import _build
+    from kalle_tpu_torch.train.trainer import Trainer
+
+    log(f"# phase 4: Trainer.fit at full width, batch {TRAIN_B} x {TRAIN_T}, "
+        f"{TRAIN_A} microbatches a step, {TRAIN_STEPS} steps")
+    meta = write_latents(root, TRAIN_B * TRAIN_A * 3)
+    model = LlasaConfig(llama=LlamaConfig(use_flash_attention=True), latent_dim=64,
+                        audio_proj_dim=2048, head_variant="sigma")
+    exp = ExperimentConfig(
+        project_name="chip_smoke_train", exp_dir=os.path.join(root, "exp"), model=model,
+        train=TrainConfig(lr=5e-5, warmup_steps=2, total_steps=1000,
+                          gradient_accumulation_steps=TRAIN_A, end_loss_weight=0.002,
+                          log_interval=1, save_interval=10 ** 9, seed=0),
+        data=DataConfig(meta_path=meta, batch_size=TRAIN_B, use_dynamic=False,
+                        num_workers=1, prefetch_size=4, length_buckets=(TRAIN_T,),
+                        max_length=TRAIN_T))
+    tok = build_tokenizer()
+    t0 = time.perf_counter()
+    trainer = Trainer(exp, tok, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in tree_leaves(trainer.state.params))
+    log(f"  init {time.perf_counter() - t0:.2f} s, {n_params} parameters (f32 master)")
+    before = [p.detach().clone() for p in tree_leaves(trainer.state.params)]
+
+    _build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer.fit(max_steps=TRAIN_STEPS, profile_steps=(TRAIN_STEPS - 1, TRAIN_STEPS - 1))
+    fit_s = time.perf_counter() - t0
+    launches = {k: v for k, v in _build.LAUNCHES.items() if k.startswith("flash")}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    hist = trainer.history
+    losses = [h["total_loss"] for h in hist]
+    if len(hist) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"training losses: {losses}")
+    moved = [bool((p.detach() != b).any()) for p, b in zip(tree_leaves(trainer.state.params),
+                                                           before)]
+    if not all(moved):
+        raise AssertionError(f"{moved.count(False)} of {len(moved)} params did not move")
+    del before
+    L = model.llama.num_layers
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        expect = L * TRAIN_A * TRAIN_STEPS
+        if launches.get(name, 0) != expect:
+            raise AssertionError(f"{name}: {launches.get(name, 0)} launches, the path "
+                                 f"implies {expect}")
+    log("kernels launches " + json.dumps(launches))
+    step_ms = [1e3 / h["steps_per_s"] for h in hist]
+    steady = sorted(step_ms[1:-1])  # not the first (warm-up) nor the profiled last
+    ms = steady[len(steady) // 2]
+    tokens = TRAIN_A * TRAIN_B * TRAIN_T
+    log(f"  losses {[round(x, 5) for x in losses]}")
+    log(f"train ms_per_step {ms:.2f} (median of steps 2..{TRAIN_STEPS - 1}; all "
+        f"{[round(x, 1) for x in step_ms]}) tokens_per_s {tokens / ms * 1e3:.0f} "
+        f"({tokens} tokens a step) model_flops_share "
+        f"{6 * n_params * tokens / (ms / 1e3) / BF16_FLOP_PER_S:.4f} "
+        f"peak_mem_gb {peak_gb:.2f} fit_s {fit_s:.1f} card {card}")
+    log(f"  K5-K7 launches a step: " + json.dumps(
+        {k: v / TRAIN_STEPS for k, v in launches.items()}))
+    report_profile(trainer.profiler, trainer.profile_wall_s, "profiled step")
+
+    # the final checkpoint restores into a fresh trainer (params and AdamW state)
+    trainer.state.optimizer.zero_grad(set_to_none=True)
+    t0 = time.perf_counter()
+    again = Trainer(exp, tok, device="cuda")
+    if again.start_step != TRAIN_STEPS:
+        raise AssertionError(f"restored step {again.start_step}, saved {TRAIN_STEPS}")
+    for a, b in zip(tree_leaves(again.state.params), tree_leaves(trainer.state.params)):
+        if not torch.equal(a, b):
+            raise AssertionError("a restored param differs from the trained one")
+    sa, sb = again.state.optimizer.state_dict(), trainer.state.optimizer.state_dict()
+    for i, st in sb["state"].items():
+        if not all(torch.equal(v, sa["state"][i][k].to(v.device)) for k, v in st.items()):
+            raise AssertionError("restored AdamW state differs")
+    log(f"  checkpoint restored in {time.perf_counter() - t0:.1f} s: params and AdamW "
+        "state equal")
+    del again, trainer
+    torch.cuda.empty_cache()
+    return launches
+
+
+def report_profile(prof, wall_s: float, what: str) -> None:
+    """Device time by kernel and the busy share of `wall_s`; user
+    annotations (ranges such as Optimizer.step, which the profiler also
+    lists with device time) are left out."""
+    kernels = [e for e in prof.key_averages()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")
+               and not getattr(e, "is_user_annotation", False)]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    if busy_us == 0:
+        log(f"  profile of {what}: the profiler saw no device time")
+        return
+    log(f"  profile of {what} (profiler on): wall_ms {wall_s * 1e3:.1f} device_busy_ms "
+        f"{busy_us / 1e3:.1f} busy_share {busy_us / 1e6 / wall_s:.3f}")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+        log(f"    {e.self_device_time_total / 1e3:9.3f} ms {e.count:7d} calls "
+            f"{e.self_device_time_total / busy_us:6.3f}  {e.key[:90]}")
+
+
+def phase_train_reference():
+    """One train_step of a small model whose shapes the kernels take, on the
+    card (K5-K7) and on the CPU (their plain versions), from the same
+    weights and batch: loss and grads agree within bf16 tolerance."""
+    from kalle_tpu_torch.bridge import tree_leaves, tree_map
+    from kalle_tpu_torch.core.config import LlamaConfig, LlasaConfig, TrainConfig
+    from kalle_tpu_torch.data.collate import Item, collate
+    from kalle_tpu_torch.models.lm import llasa
+    from kalle_tpu_torch.train.step import make_train_state, train_step
+
+    log("# phase 4 small-input check: train_step on the card vs the plain CPU path")
+    llama = LlamaConfig(vocab_size=300, hidden_size=256, intermediate_size=512,
+                        num_layers=2, num_heads=4, num_kv_heads=2, head_dim=64)
+    cfg = LlasaConfig(llama=llama, latent_dim=64, audio_proj_dim=256,
+                      head_variant="stableaudio")
+    tcfg = TrainConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    params = llasa.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(1)
+    items = []
+    for n_ids, n_frames in ((12, 180), (30, 226), (7, 100), (20, 200)):
+        dist = np.concatenate([rng.normal(size=(n_frames, 64)),
+                               rng.uniform(0.5, 1.5, size=(n_frames, 64))], -1)
+        items.append(Item(input_ids=rng.integers(0, 300, n_ids).astype(np.int32),
+                          audio_latents=rng.normal(size=(n_frames, 64)).astype(np.float32),
+                          audio_distribution=dist.astype(np.float32)))
+    np_batch = collate(items, 0, buckets=(256,))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        state = make_train_state(tree_map(lambda t: t.clone().to(dev), params), tcfg)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in np_batch.items()
+                 if isinstance(v, np.ndarray)}
+        batch["input_ids"] = batch["input_ids"].long()
+        m = train_step(state, cfg, tcfg, batch, use_flash=True)
+        out[dev] = (float(m["total_loss"]), [p.grad.cpu() for p in tree_leaves(state.params)])
+    (lc, gc), (lg, gg) = out["cpu"], out["cuda"]
+    g_err = max(_rel_err(a, b) for a, b in zip(gg, gc))
+    log(f"  loss cpu {lc:.6f} card {lg:.6f}; grads max relative error {g_err:.4g} "
+        "(bf16, limits 1e-2 loss, 5e-2 grads)")
+    if abs(lg - lc) > 1e-2 * abs(lc) or g_err > 5e-2:
+        raise AssertionError("the card's train_step disagrees with the plain CPU path")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -466,6 +735,9 @@ def main() -> int:
     rows = phase_kernels()
     launches = phase_slice(card)
     phase_reference()
+    with tempfile.TemporaryDirectory() as root:
+        launches.update(phase_train(card, root))
+    phase_train_reference()
     for r in rows:
         r["launches"] = launches.get(r["name"], 0)
         r["route"] = "cuda"

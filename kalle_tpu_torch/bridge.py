@@ -15,7 +15,9 @@ across leaf by leaf with its structure unchanged:
     in that layout.
 
 Only numpy goes in: a caller holding JAX arrays maps `np.asarray` over its
-tree first, so this module never needs JAX.
+tree first, so this module never needs JAX. An f32 training tree crosses
+as f32 (`dtype=None` keeps every leaf's dtype); `params_to_numpy` carries
+a tree back (checkpoints, parity with the JAX package).
 """
 from __future__ import annotations
 
@@ -45,6 +47,26 @@ def params_from_jax(tree: Any, device="cuda", dtype=None) -> Any:
     if isinstance(tree, (list, tuple)):
         return type(tree)(params_from_jax(v, device, dtype) for v in tree)
     return _leaf(tree, device, dtype)
+
+
+def params_to_numpy(tree: Any) -> Any:
+    """The reverse of `params_from_jax`: torch leaves -> numpy arrays on the
+    host, the same structure. bf16 leaves become f32 (numpy has no bf16)."""
+    def leaf(t: torch.Tensor) -> np.ndarray:
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    return tree_map(leaf, tree)
+
+
+def tree_leaves(tree: Any) -> list:
+    """The tensor leaves of a nested dict/list tree, in a fixed order
+    (dict insertion order, depth first)."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
 
 
 def tree_map(fn, tree: Any) -> Any:

@@ -1,5 +1,6 @@
-"""Llama-3.2 decoder backbone, inference path (port of
-kalle_tpu/models/lm/llama.py:28-159, 200-324 and 406-459).
+"""Llama-3.2 decoder backbone (port of kalle_tpu/models/lm/llama.py:28-159,
+200-403 and 406-459): the KV-cached inference forward and the
+full-sequence training forward.
 
 Params keep the JAX layout: a dict whose `layers` entry stacks the L
 transformer layers on a leading axis, matmul weights (in, out), optionally
@@ -18,19 +19,28 @@ CPU. Prefill (t>1) uses `mha_t` and `maybe_matmul` in plain PyTorch, as the
 JAX package leaves it to XLA. The JAX gate that keeps small batches and
 int8 KV caches off its decode kernel was measured on a TPU; here every t=1
 step takes K1.
+
+The training forward (`forward`) attends through K5-K7
+(`ops/kernels/flash_attention.py`, forward and backward) when flash is on
+and t % 128 == 0, else through `mha` with the causal padding mask. f32
+master weights are cast to cfg.dtype where they are used, so their
+gradients land in f32.
 """
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as ckpt
 
 from ...core.config import LlamaConfig, torch_dtype
-from ...ops.attention import mha, mha_t
+from ...ops.attention import make_causal_padding_mask, mha, mha_t
 from ...ops.kernels.decode_attention import decode_attention_cached
+from ...ops.kernels.flash_attention import flash_attention
 from ...ops.kernels.qmm import fused_mlp, qmm
 from ...ops.quant import is_quantized, maybe_matmul
 
@@ -187,11 +197,13 @@ def _proj(x: torch.Tensor, w, decode: bool) -> torch.Tensor:
 
 
 def _layer(cfg: LlamaConfig, x: torch.Tensor, lp: dict, cos, sin, mask,
-           cache: Optional[KVCache] = None, li: int = 0) -> torch.Tensor:
+           cache: Optional[KVCache] = None, li: int = 0,
+           flash_pad: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One transformer block. Without a cache it attends over its own
-    (b, t) keys with `mha`; with one it writes its K/V at slots
-    [cache.length, cache.length + t) of layer `li` and attends over that
-    layer of the cache. mask: (b, 1, t, kv) bool."""
+    (b, t) keys: through the flash kernels when `flash_pad` (b, t) is
+    given, else with `mha` and mask (b, 1, t, kv) bool. With a cache it
+    writes its K/V at slots [cache.length, cache.length + t) of layer `li`
+    and attends over that layer of the cache."""
     dt = x.dtype
     b, t, h = x.shape
     nq, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -203,7 +215,8 @@ def _layer(cfg: LlamaConfig, x: torch.Tensor, lp: dict, cos, sin, mask,
     v = _proj(attn_in, lp["wv"], decode).reshape(b, t, nkv, hd)
 
     if cache is None:
-        attn = mha(q, k, v, mask)
+        attn = (flash_attention(q, k, v, flash_pad) if flash_pad is not None
+                else mha(q, k, v, mask))
     else:
         s0 = cache.length
         if s0 + t > cache.max_len:
@@ -268,3 +281,50 @@ def forward_with_cache(
         x = _layer(cfg, x, lp, cos, sin, mask, cache, li)
     cache.length += t
     return rms_norm(x, params["final_norm"].to(dt), cfg.rms_norm_eps), cache
+
+
+# ---------------------------------------------------------------------------
+# Training forward
+# ---------------------------------------------------------------------------
+
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """remat_policy "dots": keep the matmul outputs, recompute the rest."""
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_context(cfg: LlamaConfig):
+    if cfg.remat_policy == "dots":
+        return functools.partial(ckpt.create_selective_checkpoint_contexts, _save_dots)
+    return ckpt.noop_context_fn  # "full": recompute the whole layer
+
+
+def forward(params: dict, cfg: LlamaConfig, inputs_embeds: torch.Tensor,
+            attention_mask: torch.Tensor, use_flash: Optional[bool] = None
+            ) -> torch.Tensor:
+    """Full-sequence forward -> final hidden states (b, t, h).
+
+    use_flash: None follows cfg.use_flash_attention on the card and is off
+    on the CPU; True on the CPU runs the kernels' plain versions. Flash
+    needs t % 128 == 0 (every length bucket is a multiple of 128). With
+    cfg.remat each layer is a non-reentrant `torch.utils.checkpoint`."""
+    dt = torch_dtype(cfg.dtype)
+    x = inputs_embeds.to(dt)
+    t = x.shape[1]
+    cos, sin = rope_cos_sin(cfg, torch.arange(t, device=x.device))
+    if use_flash is None:
+        use_flash = cfg.use_flash_attention and x.is_cuda
+    flash_pad = attention_mask if use_flash and t % 128 == 0 else None
+    mask = None if flash_pad is not None else make_causal_padding_mask(attention_mask, t)
+    body = functools.partial(_layer, cfg, cos=cos, sin=sin, mask=mask, flash_pad=flash_pad)
+    for lp in layer_params(params["layers"]):
+        if cfg.remat:
+            x = ckpt.checkpoint(body, x, lp, use_reentrant=False,
+                                context_fn=_remat_context(cfg))
+        else:
+            x = body(x, lp)
+    return rms_norm(x, params["final_norm"].to(dt), cfg.rms_norm_eps)

@@ -1,18 +1,29 @@
-"""Llasa: the continuous-latent audio LM, inference subset (port of
-kalle_tpu/models/lm/llasa.py:46-79 and 209-214).
+"""Llasa: the continuous-latent audio LM (port of
+kalle_tpu/models/lm/llasa.py:46-214).
 
 A Llama backbone plus `audio_linear` (latent_dim -> audio_proj_dim input
 projection) and `distribution_linear` (Linear -> exact GELU -> Linear
-head emitting the next frame's latent distribution). Training losses,
-`embed_inputs` and the other heads' losses are not ported yet.
+head emitting the next frame's latent distribution). Three head variants:
+  "sigma":       head -> mean; sigma fixed 0.5; input latents are noised
+                 before embedding; loss KL(pred || label);
+  "stableaudio": head -> mean||log_scale; labels mean||scale with the
+                 label std x1.25; loss KL(label || pred);
+  "melvae":      head -> mean||log_scale; labels mean||log_scale; loss
+                 KL(label || pred).
+Sequence packing: one row per sample, [text ids][audio frames], merged by
+elementwise masks, attention over the union.
 """
 from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from ...core.config import LlasaConfig
+from ...core.config import LlasaConfig, torch_dtype
 from . import llama
+from .losses import gaussian_kl, gaussian_kl_same_std, masked_frame_loss, split_mean_scale_btd
 
 
 def init_params(cfg: LlasaConfig, generator: torch.Generator, device="cuda") -> dict:
@@ -59,3 +70,86 @@ def end_kl(cfg: LlasaConfig, mean: torch.Tensor, std: torch.Tensor) -> torch.Ten
     s2 = torch.full_like(mean, cfg.end_std).float()
     kl = torch.log(s2 / s1) + (s1 * s1 + (m1 - m2) ** 2) / (2.0 * s2 * s2) - 0.5
     return kl.sum(dim=-1) / cfg.latent_dim
+
+
+def sample_fix(generator: torch.Generator, mean: torch.Tensor, std: float) -> torch.Tensor:
+    """sigma-VAE 'fix' sampling: mean + std * N(0, 1), drawn in f32 from
+    `generator` (on mean's device) and cast to mean's dtype."""
+    noise = torch.randn(mean.shape, generator=generator, device=mean.device,
+                        dtype=torch.float32)
+    return mean + std * noise.to(mean.dtype)
+
+
+def embed_inputs(params: dict, cfg: LlasaConfig, batch: Dict[str, torch.Tensor],
+                 generator: Optional[torch.Generator] = None,
+                 latent_noise: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Packed-row input embeddings: token embeds and projected audio
+    latents merged by the masks. Returns (input_embed (b, t, h),
+    attention_mask (b, t) int32, latents — after the noise for sigma)."""
+    dt = torch_dtype(cfg.llama.dtype)
+    latents = batch["audio_latents"]
+    ids_mask = batch["ids_mask"].to(dt)
+    audio_mask = batch["audio_mask"].to(dt)
+    text_embed = llama.embed_tokens(params["llama"], batch["input_ids"], cfg.llama)
+    if cfg.head_variant == "sigma":
+        # input latents are noised before embedding; latent_noise injects a
+        # fixed N(0, 1) draw (replay, parity tests), else the generator draws
+        if latent_noise is not None:
+            latents = latents.to(dt) + cfg.sigma * latent_noise.to(dt)
+        elif generator is not None:
+            latents = sample_fix(generator, latents.to(dt), cfg.sigma)
+        else:
+            raise ValueError("sigma variant requires a generator or latent_noise")
+    audio_embed = audio_proj(params, latents, dt)
+    input_embed = audio_embed * audio_mask[..., None] + text_embed * ids_mask[..., None]
+    attention_mask = (batch["ids_mask"].to(torch.int32)
+                      + batch["audio_mask"].to(torch.int32))
+    return input_embed, attention_mask, latents
+
+
+def head_kl(params: dict, cfg: LlasaConfig, hidden: torch.Tensor, labels: torch.Tensor):
+    """Distribution head + per-element KL for the configured variant.
+    Returns (kl_elem (b, t, d), pre_mean, pre_log_scale)."""
+    dt = torch_dtype(cfg.llama.dtype)
+    head_out = distribution_head(params, hidden, dt)
+    if cfg.head_variant == "sigma":
+        mean2 = head_out
+        kl_elem = gaussian_kl_same_std(mean2, cfg.sigma, labels)  # KL(pred || label)
+        pre_log_scale = torch.full_like(mean2, math.log(cfg.sigma))
+    elif cfg.head_variant in ("stableaudio", "melvae"):
+        mean2, logs2 = split_mean_scale_btd(head_out)
+        mean1, s1 = split_mean_scale_btd(labels)
+        std1 = (s1 * cfg.label_std_scale if cfg.head_variant == "stableaudio"
+                else torch.exp(s1))
+        kl_elem = gaussian_kl(mean1, std1, mean2, torch.exp(logs2))  # KL(label || pred)
+        pre_log_scale = logs2
+    else:
+        raise ValueError(f"unknown head_variant {cfg.head_variant}")
+    return kl_elem, mean2, pre_log_scale
+
+
+def _head_losses(params: dict, cfg: LlasaConfig, hidden: torch.Tensor,
+                 batch: Dict[str, torch.Tensor], latents: torch.Tensor):
+    kl_elem, mean2, pre_log_scale = head_kl(params, cfg, hidden, batch["distribute_labels"])
+    audio_loss, end_loss = masked_frame_loss(kl_elem, cfg.latent_dim,
+                                             batch["target_mask"], batch["end_mask"])
+    extras = ({"ground_truth_audio_latents": latents}
+              if cfg.head_variant == "sigma" else {})
+    return {"audio_loss": audio_loss, "end_loss": end_loss, "pre_mean": mean2,
+            "pre_log_scale": pre_log_scale, **extras}
+
+
+def forward(params: dict, cfg: LlasaConfig, batch: Dict[str, torch.Tensor],
+            generator: Optional[torch.Generator] = None,
+            latent_noise: Optional[torch.Tensor] = None,
+            use_flash: Optional[bool] = None) -> Dict[str, torch.Tensor]:
+    """Training forward over a collated batch (input_ids (b, t);
+    audio_latents (b, t, d); distribute_labels (b, t, d or 2d); ids_mask,
+    audio_mask, target_mask, end_mask (b, t)). Returns audio_loss,
+    end_loss, pre_mean, pre_log_scale (+ the noised latents for sigma)."""
+    input_embed, attention_mask, latents = embed_inputs(
+        params, cfg, batch, generator=generator, latent_noise=latent_noise)
+    hidden = llama.forward(params["llama"], cfg.llama, input_embed, attention_mask,
+                           use_flash=use_flash)
+    return _head_losses(params, cfg, hidden, batch, latents)

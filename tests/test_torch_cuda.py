@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain versions on the card, at
 small and ragged shapes the main path does not reach (C not a multiple of
 128, T not a multiple of the time tile, M not a multiple of 16, f32 and
-int8 caches, dense bf16 weights). Needs an NVIDIA GPU and nvcc; skipped
-elsewhere. On the card (this file imports no JAX, so no conftest):
+int8 caches, dense bf16 weights; flash attention at t 128 and 384 with
+fully masked rows, f32 and bf16), and one flash train_step against the
+plain path. Needs an NVIDIA GPU and nvcc; skipped elsewhere. On the card (this file imports no JAX, so no conftest):
 
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_cuda.py
 """
@@ -12,6 +13,7 @@ import torch
 from kalle_tpu_torch.ops.kernels import _build
 from kalle_tpu_torch.ops.kernels import convnext_block as k4
 from kalle_tpu_torch.ops.kernels import decode_attention as k1
+from kalle_tpu_torch.ops.kernels import flash_attention as k567
 from kalle_tpu_torch.ops.kernels import qmm as k23
 
 pytestmark = pytest.mark.cuda
@@ -104,6 +106,16 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(g):
         k23.qmm(x, torch.zeros(100, 64, dtype=torch.int8, device="cuda"))
     with pytest.raises(ValueError):  # f32 activations
         k23.qmm(x.float()[:, :64], torch.zeros(64, 64, dtype=torch.int8, device="cuda"))
+    q = torch.zeros(1, 128, 4, 48, dtype=BF, device="cuda")
+    pad = torch.ones(1, 128, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError):  # hd=48 has no kernel
+        k567.flash_fwd(q, q[:, :, :2], q[:, :, :2], pad)
+    q = torch.zeros(1, 128, 4, 64, dtype=torch.float16, device="cuda")
+    with pytest.raises(ValueError):  # fp16
+        k567.flash_fwd(q, q[:, :, :2].contiguous(), q[:, :, :2].contiguous(), pad)
+    q = torch.zeros(1, 128, 3, 64, dtype=BF, device="cuda")
+    with pytest.raises(ValueError):  # 3 query heads over 2 KV heads
+        k567.flash_fwd(q, q[:, :, :2].contiguous(), q[:, :, :2].contiguous(), pad)
     with pytest.raises(ValueError):  # C=48 has no kernel
         z = torch.zeros(48, dtype=BF, device="cuda")
         k4.convnext_block(torch.zeros(1, 8, 48, dtype=BF, device="cuda"), z,
@@ -111,3 +123,70 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(g):
                           torch.zeros(1, 48, 192, dtype=BF, device="cuda"),
                           torch.zeros(192, dtype=BF, device="cuda"),
                           torch.zeros(1, 96, 48, dtype=BF, device="cuda"), z)
+
+
+@pytest.mark.parametrize("dtype,b,t,nq,nkv,hd", [(torch.float32, 3, 128, 4, 2, 32),
+                                                 (BF, 4, 384, 8, 2, 128)])
+def test_flash_attention(g, dtype, b, t, nq, nkv, hd):
+    q, do = (torch.randn(b, t, nq, hd, generator=g, device="cuda").to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(b, t, nkv, hd, generator=g, device="cuda").to(dtype)
+            for _ in range(2))
+    pad = torch.ones(b, t, dtype=torch.int32, device="cuda")
+    pad[0, t - 50:] = 0
+    pad[1, :70] = 0  # queries 0..69 see no valid key
+    pad[2] = 0       # no valid key at all
+    tol = 2e-2 if dtype == BF else 1e-4
+    o, lse = k567.flash_fwd(q, k, v, pad)
+    o_ref, lse_ref = k567.flash_attention_fwd_plain(q, k, v, pad)
+    _close(o, o_ref, tol)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-5)
+    delta = k567.attention_delta(o_ref, do)
+    _close(k567.flash_bwd_dq(q, k, v, pad, do, lse_ref, delta),
+           k567.flash_bwd_dq_plain(q, k, v, pad, do, lse_ref, delta), tol)
+    for got, ref in zip(k567.flash_bwd_dkv(q, k, v, pad, do, lse_ref, delta),
+                        k567.flash_bwd_dkv_plain(q, k, v, pad, do, lse_ref, delta)):
+        _close(got, ref, tol)
+
+
+@pytest.mark.parametrize("remat", ["none", "full", "dots"])
+def test_flash_train_step_matches_plain(g, remat):
+    """One train_step of a tiny bf16 model through K5-K7 (recomputed in the
+    backward under remat) against the same step through the plain versions
+    (CPU), from the same weights."""
+    import numpy as np
+
+    from kalle_tpu_torch.bridge import tree_leaves, tree_map
+    from kalle_tpu_torch.core.config import LlamaConfig, LlasaConfig, TrainConfig
+    from kalle_tpu_torch.data.collate import Item, collate
+    from kalle_tpu_torch.models.lm import llasa
+    from kalle_tpu_torch.train.step import make_train_state, train_step
+
+    cfg = LlasaConfig(llama=LlamaConfig(vocab_size=300, hidden_size=128,
+                                        intermediate_size=256, num_layers=2, num_heads=4,
+                                        num_kv_heads=2, head_dim=32, remat=remat != "none",
+                                        remat_policy=remat),
+                      latent_dim=16, audio_proj_dim=128, head_variant="stableaudio")
+    tcfg = TrainConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    params = llasa.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(0)
+    items = [Item(input_ids=rng.integers(0, 300, n).astype(np.int32),
+                  audio_latents=rng.normal(size=(f, 16)).astype(np.float32),
+                  audio_distribution=np.concatenate(
+                      [rng.normal(size=(f, 16)), rng.uniform(0.5, 1.5, (f, 16))],
+                      -1).astype(np.float32)) for n, f in ((9, 100), (20, 108))]
+    np_batch = collate(items, 0, buckets=(128,))
+    out = []
+    for dev in ("cpu", "cuda"):
+        state = make_train_state(tree_map(lambda t: t.clone().to(dev), params), tcfg)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in np_batch.items()
+                 if isinstance(v, np.ndarray)}
+        before = _build.LAUNCHES[k567.NAME_FWD]
+        m = train_step(state, cfg, tcfg, batch, use_flash=True)
+        if dev == "cuda":  # K5 once a layer, and again in the backward under remat
+            assert _build.LAUNCHES[k567.NAME_FWD] - before == (2 if remat == "none" else 4)
+        out.append((float(m["total_loss"]), [p.grad.cpu() for p in tree_leaves(state.params)]))
+    (lc, gc), (lg, gg) = out
+    assert abs(lg - lc) <= 1e-2 * abs(lc)
+    for a, b in zip(gg, gc):  # bf16 compute: 5% of each gradient's largest entry
+        assert float((a - b).abs().max()) <= 5e-2 * float(b.abs().max()) + 1e-6
