@@ -25,12 +25,31 @@ Phases (any failure exits nonzero and prints no result):
      K5-K7's launch counts; prints ms a step, tokens/s, the model-FLOPs
      share, peak memory and the busy share of one profiled step. Then one
      train_step of a small model on the card and on the CPU (plain
-     versions): loss and grads agree.
+     versions): loss and grads agree;
+  5. serve the full-width int8 model (bf16, sigma head) by continuous
+     batching: ContinuousBatcher.run of 64 requests (prompts of 20-120
+     byte-tokenizer ids, 128 frames, all arriving at once) at batch 32 and
+     at batch 8, printing requests/s, frames/s, ms a decode step and every
+     kernel's launches (K1 in its sideband mode, K2, K3 in every step), and
+     a profile of one batch-32 run; greedy completions of the batcher
+     against `generate` (fed the batcher's left-padded bucket prompts) on
+     the card for 4 prompts over 16 frames (in f32 all 16 frames within
+     1e-3; in bf16 with int8 weights frames 0-7 within max(2e-2, 4x the
+     drift of a rerun of `generate`), the rest printed); then serve_http
+     on port 0 with the real BatcherService (batch 8, chunks of 25
+     frames) and the bf16 SigmaVAE: eight concurrent GET /tts clients,
+     each body the wav header and
+     exactly (128 - 1) * 3200 * 2 PCM bytes, with time to first audio and
+     total seconds a request.
 
 Phase 2 also holds K5-K7 (flash attention forward, dq, dk/dv) against
 their plain versions at the flagship training shape (b 8, t 512, 32/8
 heads, hd 64, bf16; ragged pads, a left-padded row, a row with no valid
-key). Launch counts: K1-K4 from phase 3's run, K5-K7 from phase 4's.
+key), K1's sideband mode at phase 5's shapes (batch 8 and 32, cache 384,
+ragged rows, some rows' new column not counted), and K2 and K3 at both
+serving batches, M 8 and 32 (the kernels line keeps M 32). Launch counts: K1-K4
+from phase 3's run, K5-K7 from phase 4's, K1's sideband from phase 5's
+batch-32 run.
 
 Prints a `kernels` JSON line, the card line, and as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
@@ -39,13 +58,17 @@ Needs a CUDA card, nvcc, and nothing of JAX.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import math
 import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.parse
+import urllib.request
 
 import numpy as np
 import torch
@@ -56,6 +79,10 @@ BATCH, TEXT_LEN, MAX_FRAMES, LATENT_HZ = 32, 32, 128, 7.5
 ITERS = 3
 # phase 4: batch rows, bucket length, microbatches a step, optimizer steps
 TRAIN_B, TRAIN_T, TRAIN_A, TRAIN_STEPS = 8, 512, 2, 10
+# phase 5: requests, frames a request, the batcher's prompt buckets and its
+# cache length (the largest bucket plus max_frames + 1, rounded up to 128)
+SERVE_REQS, SERVE_FRAMES, SERVE_BUCKETS = 64, 128, (16, 32, 64, 128)
+SERVE_CACHE = -(-(SERVE_BUCKETS[-1] + SERVE_FRAMES + 1) // 128) * 128
 
 
 def log(*a):
@@ -111,6 +138,13 @@ def event_ms(fn, iters: int) -> float:
 def bound(nbytes: float, flops: float):
     t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+
+def each_layer(fn, n_layers: int):
+    """fn(i) over layers 0, 1, ... in turn, so each call finds its layer of
+    a stacked cache or weight cold in L2."""
+    layers = itertools.count()
+    return lambda: fn(next(layers) % n_layers)
 
 
 # --------------------------------------------------------------- phase 1 ----
@@ -188,23 +222,15 @@ def check_decode_attention(g):
     log(f"  decode_attention int8 cache: max_abs_err {_max_err(got8, ref8):.4g}")
 
     # time over all 16 layers so each call finds its layer cold in L2
-    layers = iter(range(10 ** 9))
-
-    def each_layer(fn):
-        def run():
-            i = next(layers) % L
-            return fn(i)
-        return run
-
-    kern = cuda_ms(each_layer(lambda i: decode_attention_cached(q[i], kt, v, i, mask)), 64)
-    plain = cuda_ms(each_layer(lambda i: decode_attention_plain(q[i], kt, v, i, mask)), 16)
+    kern = cuda_ms(each_layer(lambda i: decode_attention_cached(q[i], kt, v, i, mask), L), 64)
+    plain = cuda_ms(each_layer(lambda i: decode_attention_plain(q[i], kt, v, i, mask), L), 16)
     lib_ms = None
     try:
         sdpa = torch.nn.functional.scaled_dot_product_attention
         am = mask[:, None, None, :]
         lib_ms = cuda_ms(each_layer(lambda i: sdpa(
             q[i][:, :, None], kt[i].transpose(-1, -2), v[i], attn_mask=am,
-            enable_gqa=True)), 64)
+            enable_gqa=True), L), 64)
     except TypeError as e:  # a torch without enable_gqa
         log(f"  sdpa not timed: {e}")
     n_valid = int(mask.sum())
@@ -217,69 +243,168 @@ def check_decode_attention(g):
                 work=(nbytes, flops))
 
 
+def check_decode_attention_sideband(g):
+    """K1's serving mode at phase 5's shapes: 16 layers, cache 384, batch 8
+    and 32. Row r holds a left-padded prompt of 20..bucket ids in a bucket
+    of 32, 64 or 128 slots, then 0..127 frames; this step's column goes to
+    the slot after them, and about a quarter of the rows (and row 1) do not
+    count it. Returns the batch-32 row; batch 8 is logged."""
+    from kalle_tpu_torch.ops.kernels.decode_attention import (
+        decode_attention_cached, decode_attention_plain)
+
+    L, C, nq, nkv, hd = 16, SERVE_CACHE, 32, 8, 64
+    dev, bf = "cuda", torch.bfloat16
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    row = None
+    for B in (8, 32):
+        q = torch.randn(L, B, nq, hd, generator=g, device=dev).to(bf)
+        kt = torch.randn(L, B, nkv, hd, C, generator=g, device=dev).to(bf)
+        v = torch.randn(L, B, nkv, C, hd, generator=g, device=dev).to(bf)
+        kn, vn = (torch.randn(L, B, nkv, hd, generator=g, device=dev).to(bf) for _ in range(2))
+        bucket = torch.tensor((32, 64, 128), device=dev)[
+            torch.randint(0, 3, (B,), generator=g, device=dev)]
+        n_ids = 20 + (torch.rand(B, generator=g, device=dev) * (bucket - 19)).long()
+        n_gen = torch.randint(0, SERVE_FRAMES, (B,), generator=g, device=dev)
+        pos = torch.arange(C, device=dev)[None]
+        mask = (((pos >= (bucket - n_ids)[:, None]) & (pos < bucket[:, None]))
+                | ((pos >= bucket[:, None]) & (pos < (bucket + n_gen)[:, None])))
+        slot = bucket + n_gen
+        live = torch.rand(B, generator=g, device=dev) > 0.25
+        live[1] = False
+
+        def kernel(i):
+            return decode_attention_cached(q[i], kt, v, i, mask, k_new=kn[i], v_new=vn[i],
+                                           new_valid=live)
+
+        def plain(i):
+            return decode_attention_plain(q[i], kt, v, i, mask, k_new=kn[i], v_new=vn[i],
+                                          new_valid=live)
+
+        got, ref = kernel(7), plain(7)
+        _assert_close(f"decode_attention_sideband B={B}", got, ref, 2e-2, 2e-2)
+        err = _max_err(got, ref)
+        # SDPA computes the same function in one call over a cache with the
+        # column written at each row's slot and counted where it is live
+        rows = torch.arange(B, device=dev)
+        kt2, v2 = kt.clone(), v.clone()
+        kt2[:, rows, :, :, slot] = kn.transpose(0, 1)
+        v2[:, rows, :, slot, :] = vn.transpose(0, 1)
+        post = mask.clone()
+        post[rows, slot] |= live
+        am = post[:, None, None, :]
+        k_ms = cuda_ms(each_layer(kernel, L), 64)
+        p_ms = cuda_ms(each_layer(plain, L), 16)
+        lib_ms = cuda_ms(each_layer(lambda i: sdpa(
+            q[i][:, :, None], kt2[i].transpose(-1, -2), v2[i], attn_mask=am,
+            enable_gqa=True), L), 64)
+        n_keys = int(mask.sum()) + int(live.sum())
+        nbytes = (n_keys * nkv * hd * 2 * 2           # K and V of the keys that count
+                  + 2 * B * nq * hd * 2 + B * C + B)  # q, out, mask, new_valid
+        flops = 4 * n_keys * nq * hd
+        b_ms, b_by = bound(nbytes, flops)
+        log(f"  decode_attention_sideband B={B} C={C}: kernel_ms {k_ms:.4f} plain_ms "
+            f"{p_ms:.4f} sdpa_ms {lib_ms:.4f} bound_ms {b_ms:.4f} ({b_by}) "
+            f"max_abs_err {err:.4g} (tolerance 2e-2 abs + 2e-2 rel)")
+        row = dict(name="decode_attention_sideband",
+                   source="kalle_tpu_torch/csrc/decode_attention.cu",
+                   replaces="kalle_tpu/ops/pallas/decode_attention.py:320",
+                   max_abs_err=err, ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+                   work=(nbytes, flops), note=f"batch {B}, cache {C}, sideband mode")
+        del q, kt, v, kn, vn, kt2, v2
+        torch.cuda.empty_cache()
+    return row
+
+
 def _int8_layers(g, L, k, n):
     w = torch.randn(L, k, n, generator=g, device="cuda") * 0.02
     scale = w.abs().amax(dim=1).clamp_min(1e-8) / 127
     return torch.round(w / scale[:, None]).to(torch.int8), scale
 
 
+def _x_rows(g, H):
+    """Activations at each serving batch (8 and 32; phase 3 runs 32): the
+    32 rows from `g`, the 8 from a generator of their own."""
+    g8 = torch.Generator(device="cuda").manual_seed(8)
+    return {BATCH: torch.randn(BATCH, H, generator=g, device="cuda").to(torch.bfloat16),
+            8: torch.randn(8, H, generator=g8, device="cuda").to(torch.bfloat16)}
+
+
+def log_row(r):
+    """Turn a row's work into its bound and log it."""
+    nbytes, flops = r.pop("work")
+    r["bound_ms"], r["bound_by"] = bound(nbytes, flops)
+    log(f"  {r['name']}: kernel_ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} "
+        f"library_ms {r['library_ms']} bound_ms {r['bound_ms']:.4f} "
+        f"({r['bound_by']}) max_abs_err {r['max_abs_err']:.4g} {r.get('note', '')}")
+
+
 def check_qmm(g):
+    """K2 at both serving batches (M 8 and 32 pick different instances);
+    the row of the kernels line is M = 32, M = 8 is logged."""
     from kalle_tpu_torch.ops.kernels.qmm import qmm, qmm_plain
 
-    L, M, H = 16, BATCH, 2048
+    L, H = 16, 2048
     shapes = {"wq": (H, 2048), "wk": (H, 512), "wv": (H, 512), "wo": (2048, H)}
     ws = {k: _int8_layers(g, L, *s) for k, s in shapes.items()}
-    x = torch.randn(M, H, generator=g, device="cuda").to(torch.bfloat16)
-    err = 0.0
-    for name, (q, s) in ws.items():
-        got, ref = qmm(x, q[5], s[5]), qmm_plain(x, q[5], s[5])
-        rel = _rel_err(got, ref)
-        if rel > 1e-2:
-            raise AssertionError(f"qmm {name}: relative error {rel:.4g} > 1e-2")
-        err = max(err, _max_err(got, ref))
     deq = {k: (q.float() * s[:, None]).to(torch.bfloat16) for k, (q, s) in ws.items()}
-    li = iter(range(10 ** 9))
+    rows = {}
+    for M, x in sorted(_x_rows(g, H).items()):
+        err = 0.0
+        for name, (q, s) in ws.items():
+            got, ref = qmm(x, q[5], s[5]), qmm_plain(x, q[5], s[5])
+            rel = _rel_err(got, ref)
+            if rel > 1e-2:
+                raise AssertionError(f"qmm {name} M={M}: relative error {rel:.4g} > 1e-2")
+            err = max(err, _max_err(got, ref))
+        li = iter(range(10 ** 9))
 
-    def layer_of(fn):
-        def run():
-            i = next(li) % L
-            for name in shapes:
-                fn(name, i)
-        return run
+        def layer_of(fn):
+            def run():
+                i = next(li) % L
+                for name in shapes:
+                    fn(name, i)
+            return run
 
-    kern = cuda_ms(layer_of(lambda n, i: qmm(x, ws[n][0][i], ws[n][1][i])), 64)
-    plain = cuda_ms(layer_of(lambda n, i: qmm_plain(x, ws[n][0][i], ws[n][1][i])), 16)
-    lib = cuda_ms(layer_of(lambda n, i: torch.matmul(x, deq[n][i])), 64)
-    nbytes = sum(k * n + n * 4 + M * k * 2 + M * n * 2 for k, n in shapes.values())
-    flops = sum(2 * M * k * n for k, n in shapes.values())
-    return dict(name="qmm", source="kalle_tpu_torch/csrc/qmm.cu",
-                replaces="kalle_tpu/ops/pallas/qmm.py:74", max_abs_err=err,
-                ms=kern, plain_ms=plain, library_ms=lib, work=(nbytes, flops),
-                note="one layer's wq+wk+wv+wo, M=32, int8")
+        kern = cuda_ms(layer_of(lambda n, i: qmm(x, ws[n][0][i], ws[n][1][i])), 64)
+        plain = cuda_ms(layer_of(lambda n, i: qmm_plain(x, ws[n][0][i], ws[n][1][i])), 16)
+        lib = cuda_ms(layer_of(lambda n, i: torch.matmul(x, deq[n][i])), 64)
+        nbytes = sum(k * n + n * 4 + M * k * 2 + M * n * 2 for k, n in shapes.values())
+        flops = sum(2 * M * k * n for k, n in shapes.values())
+        rows[M] = dict(name="qmm", source="kalle_tpu_torch/csrc/qmm.cu",
+                       replaces="kalle_tpu/ops/pallas/qmm.py:74", max_abs_err=err,
+                       ms=kern, plain_ms=plain, library_ms=lib, work=(nbytes, flops),
+                       note=f"one layer's wq+wk+wv+wo, M={M}, int8 (tolerance 1e-2 relative)")
+    log_row(rows[8])
+    return rows[BATCH]
 
 
 def check_fused_mlp(g):
+    """K3 at both serving batches, as check_qmm."""
     from kalle_tpu_torch.ops.kernels.qmm import fused_mlp, fused_mlp_plain
 
-    L, M, H, F = 16, BATCH, 2048, 8192
+    L, H, F = 16, 2048, 8192
     wg, wu, wd = (_int8_layers(g, L, *s) for s in ((H, F), (H, F), (F, H)))
-    x = torch.randn(M, H, generator=g, device="cuda").to(torch.bfloat16)
 
     def layer(i):
         return [{"q": q[i], "scale": s[i]} for q, s in (wg, wu, wd)]
 
-    got, ref = fused_mlp(x, *layer(5)), fused_mlp_plain(x, *layer(5))
-    rel = _rel_err(got, ref)
-    if rel > 1e-2:
-        raise AssertionError(f"fused_mlp: relative error {rel:.4g} > 1e-2")
-    li = iter(range(10 ** 9))
-    kern = cuda_ms(lambda: fused_mlp(x, *layer(next(li) % L)), 64)
-    plain = cuda_ms(lambda: fused_mlp_plain(x, *layer(next(li) % L)), 16)
-    nbytes = 3 * H * F + (2 * F + H) * 4 + 2 * M * H * 2
-    return dict(name="fused_mlp", source="kalle_tpu_torch/csrc/qmm.cu",
-                replaces="kalle_tpu/ops/pallas/qmm.py:151", max_abs_err=_max_err(got, ref),
-                ms=kern, plain_ms=plain, library_ms=None,
-                work=(nbytes, 3 * 2 * M * H * F))
+    rows = {}
+    for M, x in sorted(_x_rows(g, H).items()):
+        got, ref = fused_mlp(x, *layer(5)), fused_mlp_plain(x, *layer(5))
+        rel = _rel_err(got, ref)
+        if rel > 1e-2:
+            raise AssertionError(f"fused_mlp M={M}: relative error {rel:.4g} > 1e-2")
+        li = iter(range(10 ** 9))
+        kern = cuda_ms(lambda: fused_mlp(x, *layer(next(li) % L)), 64)
+        plain = cuda_ms(lambda: fused_mlp_plain(x, *layer(next(li) % L)), 16)
+        nbytes = 3 * H * F + (2 * F + H) * 4 + 2 * M * H * 2
+        rows[M] = dict(name="fused_mlp", source="kalle_tpu_torch/csrc/qmm.cu",
+                       replaces="kalle_tpu/ops/pallas/qmm.py:151",
+                       max_abs_err=_max_err(got, ref), ms=kern, plain_ms=plain,
+                       library_ms=None, work=(nbytes, 3 * 2 * M * H * F),
+                       note=f"one layer, M={M}, int8 (tolerance 1e-2 relative)")
+    log_row(rows[8])
+    return rows[BATCH]
 
 
 # SigmaVAE decoder residual blocks at batch 32, 128 frames: (C, T)
@@ -407,17 +532,13 @@ def phase_kernels():
     log("# phase 2: each kernel against its plain version, main-path shapes")
     g = torch.Generator(device="cuda").manual_seed(0)
     rows = []
-    for check in (check_decode_attention, check_qmm, check_fused_mlp, check_convnext,
-                  check_flash):
+    for check in (check_decode_attention, check_decode_attention_sideband, check_qmm,
+                  check_fused_mlp, check_convnext, check_flash):
         r = check(g)
         rows.extend(r if isinstance(r, list) else [r])
         torch.cuda.empty_cache()
     for r in rows:
-        nbytes, flops = r.pop("work")
-        r["bound_ms"], r["bound_by"] = bound(nbytes, flops)
-        log(f"  {r['name']}: kernel_ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} "
-            f"library_ms {r['library_ms']} bound_ms {r['bound_ms']:.4f} "
-            f"({r['bound_by']}) max_abs_err {r['max_abs_err']:.4g} {r.get('note', '')}")
+        log_row(r)
     return rows
 
 
@@ -430,21 +551,27 @@ def flagship():
     return LlasaConfig(llama=llama, latent_dim=64, audio_proj_dim=2048, head_variant="sigma")
 
 
-def phase_slice(card: str):
+def flagship_int8(g):
+    """The flagship's params in bf16 with int8 layer weights, from `g`."""
     from kalle_tpu_torch.bridge import tree_map
+    from kalle_tpu_torch.models.lm import llasa
+    from kalle_tpu_torch.ops.quant import quantize_llama_params
+
+    params = llasa.init_params(flagship(), g, "cuda")
+    return quantize_llama_params(tree_map(lambda t: t.to(torch.bfloat16), params))
+
+
+def phase_slice(card: str):
     from kalle_tpu_torch.infer.generate import generate
     from kalle_tpu_torch.infer.pipeline import Codec
     from kalle_tpu_torch.models.codecs import sigmavae
-    from kalle_tpu_torch.models.lm import llasa
     from kalle_tpu_torch.ops.kernels import _build
-    from kalle_tpu_torch.ops.quant import quantize_llama_params
 
     log("# phase 3: text -> 24 kHz wav, flagship width, batch 32")
     cfg = flagship()
     g = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
-    params = llasa.init_params(cfg, g, "cuda")
-    params = quantize_llama_params(tree_map(lambda t: t.to(torch.bfloat16), params))
+    params = flagship_int8(g)
     codec = Codec.random_init("sigma", g, "cuda").astype(torch.bfloat16)
     ids = torch.randint(0, 128255, (BATCH, TEXT_LEN), generator=g, device="cuda")
     mask = torch.ones((BATCH, TEXT_LEN), dtype=torch.int32, device="cuda")
@@ -480,7 +607,7 @@ def phase_slice(card: str):
         codec_s += b
         steps += int(res.n_frames.max()) + 1
     wall = (time.perf_counter() - t0) / ITERS
-    launches = dict(_build.LAUNCHES)
+    launches = _build.launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     n_frames = res.n_frames.cpu()
@@ -609,7 +736,7 @@ def phase_train(card: str, root: str):
     t0 = time.perf_counter()
     trainer.fit(max_steps=TRAIN_STEPS, profile_steps=(TRAIN_STEPS - 1, TRAIN_STEPS - 1))
     fit_s = time.perf_counter() - t0
-    launches = {k: v for k, v in _build.LAUNCHES.items() if k.startswith("flash")}
+    launches = {k: v for k, v in _build.launches().items() if k.startswith("flash")}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     hist = trainer.history
@@ -722,6 +849,220 @@ def phase_train_reference():
         raise AssertionError("the card's train_step disagrees with the plain CPU path")
 
 
+# --------------------------------------------------------------- phase 5 ----
+
+def serve_texts(n: int, rng) -> list:
+    """n texts whose prompts are 20..120 byte-tokenizer ids (the text's
+    bytes and the two speech markers)."""
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz  "))
+    return ["".join(rng.choice(letters, size=int(rng.integers(18, 119)))) for _ in range(n)]
+
+
+def phase_serve(card: str):
+    from kalle_tpu_torch.data.tokens import build_prompt_ids, build_tokenizer
+    from kalle_tpu_torch.infer.serve_loop import ContinuousBatcher
+    from kalle_tpu_torch.ops.kernels import _build
+
+    log(f"# phase 5: continuous-batching serving at full width, {SERVE_REQS} requests, "
+        f"{SERVE_FRAMES} frames each, all arriving at t=0")
+    cfg = flagship()
+    params = flagship_int8(torch.Generator(device="cuda").manual_seed(0))
+    tok = build_tokenizer()
+    prompts = [np.asarray(build_prompt_ids(tok, t))
+               for t in serve_texts(SERVE_REQS, np.random.default_rng(0))]
+    log(f"  prompt ids: {min(map(len, prompts))}..{max(map(len, prompts))}; cache "
+        f"{SERVE_CACHE} slots")
+    L = cfg.llama.num_layers
+    serve_launches = None
+    for B in (32, 8):
+        cb = ContinuousBatcher(params, cfg, batch_size=B, max_frames=SERVE_FRAMES,
+                               prompt_buckets=SERVE_BUCKETS, seed=0)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        comps = cb.run(prompts)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _build.launches()
+        if sorted(c.index for c in comps) != list(range(SERVE_REQS)):
+            raise AssertionError("the batcher lost or repeated a request")
+        for c in comps:
+            if (c.n_frames != SERVE_FRAMES - 1 or c.means.shape != (SERVE_FRAMES - 1, 64)
+                    or not np.isfinite(c.samples).all()):
+                raise AssertionError(f"request {c.index}: {c.n_frames} frames, "
+                                     f"shape {c.samples.shape}")
+        steps = cb.step_count
+        expect = {"decode_attention_sideband": L * steps, "qmm": 4 * L * steps,
+                  "fused_mlp": L * steps, "decode_attention": 0}
+        for name, n in expect.items():
+            if launches.get(name, 0) != n:
+                raise AssertionError(f"serve batch {B}: {name} launched "
+                                     f"{launches.get(name, 0)} times, the path implies {n}")
+        frames = sum(c.n_frames for c in comps)
+        log(f"serve batch {B} requests_per_s {SERVE_REQS / wall:.4f} frames_per_s "
+            f"{frames / wall:.1f} ms_per_step {wall / steps * 1e3:.4f} (admission and prefill "
+            f"included) decode_steps {steps} wall_s {wall:.3f} card {card}")
+        log(f"kernels launches (batch {B}) " + json.dumps(launches))
+        if B == 32:
+            serve_launches = launches
+            with_profile(lambda: cb.run(prompts[:B]), f"a batch-{B} serve of {B} requests")
+        del cb
+        torch.cuda.empty_cache()
+    serve_cross_check(params, prompts[:4])
+    serve_http_check(params, tok, card)
+    return serve_launches
+
+
+def with_profile(fn, what: str) -> None:
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    report_profile(prof, wall, what)
+
+
+def serve_cross_check(params_int8, prompts):
+    """Greedy completions of the batcher against `generate` for the same 4
+    prompts over their first 16 frames, on the card. `generate` gets each
+    prompt as the batcher prefills it (left-padded to its bucket, with the
+    batcher's cache length), so frame 0 is the same computation; from frame
+    2 on every decode step reads cache columns that earlier steps wrote.
+    In f32 (dense weights, f32 cache: maybe_matmul and K1's f32 sideband)
+    the two are the same arithmetic in another order, so all 16 frames must
+    agree to 1e-3 of the largest |mean|. In bf16 with int8 weights (the
+    serving path) each frame is fed back through 16 layers of a random
+    full-width model, which amplifies bf16 rounding about 1.6x a frame, so a
+    rerun of `generate` itself (K3's atomics reorder its sums) drifts too.
+    There frames 0-7 (six decode steps that read written columns) must each
+    stay within max(2e-2, 4 x the rerun's largest departure up to that
+    frame); the whole curves are printed."""
+    from kalle_tpu_torch.core.config import LlamaConfig, LlasaConfig
+    from kalle_tpu_torch.infer.generate import generate
+    from kalle_tpu_torch.infer.serve_loop import ContinuousBatcher
+    from kalle_tpu_torch.models.lm import llasa
+
+    n, gated = 16, 8
+
+    def generated(cfg, params, cache_len):
+        out = []
+        for ids in prompts:
+            bk = min(b for b in SERVE_BUCKETS if b >= len(ids))
+            t = torch.zeros((1, bk), dtype=torch.int64, device="cuda")
+            t[0, bk - len(ids):] = torch.as_tensor(ids, device="cuda")
+            m = torch.zeros_like(t)
+            m[0, bk - len(ids):] = 1
+            out.append(generate(params, cfg, t, m, max_frames=n + 1, cache_len=cache_len,
+                                greedy=True).means[0, :n].float().cpu().numpy())
+        return out
+
+    def curve(got, ref):
+        """Per frame, the largest |difference| over the prompts, over the
+        largest |mean| of the reference."""
+        return np.max([np.abs(a - b).max(axis=1) / np.abs(b).max()
+                       for a, b in zip(got, ref)], axis=0)
+
+    f32 = LlasaConfig(llama=dataclasses.replace(LlamaConfig(), dtype="float32"),
+                      latent_dim=64, audio_proj_dim=2048, head_variant="sigma")
+    f32_params = llasa.init_params(f32, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    failed = []
+    for what, cfg, params in (("bf16 int8", flagship(), params_int8),
+                              ("f32", f32, f32_params)):
+        cb = ContinuousBatcher(params, cfg, batch_size=4, max_frames=n + 1,
+                               prompt_buckets=SERVE_BUCKETS, greedy=True)
+        comps = {c.index: c.means for c in cb.run(prompts)}
+        got = [comps[i] for i in range(len(prompts))]
+        ref = generated(cfg, params, cb.state.k.shape[-1])
+        if any(a.shape != (n, 64) for a in got):
+            raise AssertionError(f"cross-check {what}: shapes {[a.shape for a in got]}")
+        err = curve(got, ref)
+        rerun = curve(generated(cfg, params, cb.state.k.shape[-1]), ref)
+        if what == "f32":
+            bar = np.full(n, 1e-3)
+        else:
+            bar = np.maximum(2e-2, 4 * np.maximum.accumulate(rerun))
+            bar[gated:] = np.inf
+        log(f"  serve cross-check {what}: batcher vs generate, 4 prompts, per frame max "
+            f"|diff| / max |generate|: {' '.join(f'{x:.2e}' for x in err)}")
+        log(f"    generate vs its rerun: {' '.join(f'{x:.2e}' for x in rerun)}")
+        log(f"    tolerance per frame: {' '.join(f'{x:.2e}' for x in bar)}; worst share "
+            f"of it {np.max(err / bar):.4g}")
+        if not (err <= bar).all():
+            failed.append(what)
+        del cb
+    del f32_params
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"cross-check {failed}: the batcher disagrees with generate")
+
+
+def serve_http_check(params, tok, card: str):
+    """serve_http on port 0 with the real BatcherService (batch 8, chunks of
+    25 frames) and the bf16 SigmaVAE: eight concurrent /tts clients."""
+    from kalle_tpu_torch.infer.pipeline import Codec
+    from kalle_tpu_torch.ops.kernels import _build
+    from kalle_tpu_torch.serve.http import make_stream_fn, serve_http
+    from kalle_tpu_torch.serve.web import wav_chunk_header
+
+    n_clients = 8
+    codec = Codec.random_init("sigma", torch.Generator(device="cuda").manual_seed(1),
+                              "cuda").astype(torch.bfloat16)
+    stream = make_stream_fn(params, flagship(), tok, codec, chunk_frames=25,
+                            max_frames=SERVE_FRAMES, batch_size=8)
+    srv = serve_http(stream, sample_rate=codec.sample_rate, host="127.0.0.1", port=0)
+    server = threading.Thread(target=srv.serve_forever, daemon=True)
+    server.start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}/tts?text="
+    texts = serve_texts(n_clients, np.random.default_rng(1))
+    hdr = wav_chunk_header(codec.sample_rate)
+    results, errors = {}, []
+
+    def client(i):
+        try:
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(base + urllib.parse.quote(texts[i]),
+                                        timeout=600) as r:
+                head = r.read(len(hdr))
+                first = r.read(2)  # the first PCM sample: time to first audio
+                ttfa = time.perf_counter() - t0
+                body = first + r.read()
+            results[i] = (head, body, ttfa, time.perf_counter() - t0)
+        except Exception as e:  # noqa: BLE001 — reported below, and the phase fails
+            errors.append(f"client {i}: {e!r}")
+
+    try:
+        _build.reset_launches()
+        clients = [threading.Thread(target=client, args=(i,)) for i in range(n_clients)]
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(timeout=900)
+        launches = _build.launches()
+        if errors or any(c.is_alive() for c in clients):
+            raise AssertionError(f"http clients failed: {errors}")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        stream.service.close()
+        server.join(timeout=30)
+    want = (SERVE_FRAMES - 1) * codec.samples_per_frame * 2
+    for i, (head, body, _, _) in sorted(results.items()):
+        if head != hdr or len(body) != want:
+            raise AssertionError(f"http client {i}: header ok {head == hdr}, "
+                                 f"{len(body)} PCM bytes, want {want}")
+    for name in ("decode_attention_sideband", "qmm", "fused_mlp", "convnext_block"):
+        if launches.get(name, 0) == 0:
+            raise AssertionError(f"http serving did not launch {name}")
+    ttfa = sorted(r[2] for r in results.values())
+    total = sorted(r[3] for r in results.values())
+    log(f"http {n_clients} concurrent /tts streams, each {want} PCM bytes: ttfa_s "
+        f"{[round(x, 4) for x in ttfa]} total_s {[round(x, 4) for x in total]} "
+        f"decode_steps {stream.service.cb.step_count} card {card}")
+    log("kernels launches (http) " + json.dumps(launches))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -738,6 +1079,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as root:
         launches.update(phase_train(card, root))
     phase_train_reference()
+    launches["decode_attention_sideband"] = phase_serve(card)["decode_attention_sideband"]
     for r in rows:
         r["launches"] = launches.get(r["name"], 0)
         r["route"] = "cuda"

@@ -23,6 +23,14 @@
 // chunks — so the 2 MB up weight at C = 512 is never held whole. Weights
 // are read through L2 (they are shared by every block). A T that is not a
 // multiple of 32 is masked in the kernel, with no padding copy.
+//
+// Those tensor-core instances take C in {16, ..., 512} with H = 2C (the
+// SigmaVAE decoder's widths at mlp_ratio 2). Every other C and H = mlp_ratio
+// * C goes to one generic instance: a block owns R time rows (R <= 16,
+// fewer for a very wide C so that its shared memory fits), keeps the
+// filtered rows and the (R, C) down-projection sum in shared memory in f32,
+// and computes the hidden width 32 columns at a time with scalar FMAs. It
+// is slow and simple; the decoders served here do not reach it.
 #include "common.cuh"
 
 #include <mma.h>
@@ -184,6 +192,108 @@ convnext_kernel(const bf16* __restrict__ x, const bf16* __restrict__ norm,
   }
 }
 
+// ------------------------------------------------ generic instance ----
+
+constexpr int GR = 16;    // most time rows a generic block owns
+constexpr int GH = 32;    // hidden columns a generic chunk
+constexpr size_t GSMEM_MAX = 200 * 1024;
+
+constexpr size_t generic_smem(int R, int C) {
+  return ((size_t)(R + KW - 1 + 3) / 4 * 4 + 2 * (size_t)R * C + (size_t)R * GH) * 4;
+}
+
+__global__ void __launch_bounds__(WARPS * 32)
+convnext_generic_kernel(const bf16* __restrict__ x, const bf16* __restrict__ norm,
+                        const bf16* __restrict__ dww, const bf16* __restrict__ dwb,
+                        const bf16* __restrict__ upw, const bf16* __restrict__ upb,
+                        const bf16* __restrict__ downw, const bf16* __restrict__ downb,
+                        bf16* __restrict__ out, int T, int C, int H, int R, float eps) {
+  extern __shared__ __align__(16) float gsm[];
+  float* inv_s = gsm;                                   // R + KW - 1 rows
+  float* h_s = gsm + (R + KW - 1 + 3) / 4 * 4;          // (R, C) filtered rows
+  float* acc_s = h_s + (size_t)R * C;                   // (R, C) down sums
+  float* a_s = acc_s + (size_t)R * C;                   // (R, GH) GEGLU chunk
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int t0 = blockIdx.x * R;
+  const bf16* xb = x + (size_t)blockIdx.y * T * C;
+  bf16* ob = out + (size_t)blockIdx.y * T * C;
+
+  for (int r = warp; r < R + KW - 1; r += WARPS) {
+    const int t = t0 - (KW - 1) + r;
+    const bool in = t >= 0 && t < T;
+    float ss = 0.f;
+    if (in)
+      for (int c = lane; c < C; c += 32) {
+        const float v = to_f(xb[(size_t)t * C + c]);
+        ss += v * v;
+      }
+    ss = warp_sum(ss);
+    if (lane == 0) inv_s[r] = in ? rsqrtf(ss / C + eps) : 0.f;
+  }
+  __syncthreads();
+
+  for (int i = tid; i < R * C; i += blockDim.x) {
+    const int r = i / C, c = i % C;
+    const float nc = to_f(norm[c]);
+    float acc = to_f(dwb[c]);
+    for (int j = 0; j < KW; ++j) {
+      const float s = inv_s[r + j];
+      if (s != 0.f)
+        acc += to_f(xb[(size_t)(t0 + r - (KW - 1) + j) * C + c]) * s * nc * to_f(dww[j * C + c]);
+    }
+    h_s[i] = acc;
+    acc_s[i] = 0.f;
+  }
+  __syncthreads();
+
+  for (int hc0 = 0; hc0 < H; hc0 += GH) {
+    const int nh = H - hc0 < GH ? H - hc0 : GH;
+    for (int i = tid; i < R * nh; i += blockDim.x) {
+      const int r = i / nh, col = hc0 + i % nh;
+      float v = to_f(upb[col]), g = to_f(upb[H + col]);
+      const float* hr = h_s + (size_t)r * C;
+      for (int c = 0; c < C; ++c) {
+        v += hr[c] * to_f(upw[(size_t)c * 2 * H + col]);
+        g += hr[c] * to_f(upw[(size_t)c * 2 * H + H + col]);
+      }
+      a_s[r * GH + i % nh] = v * gelu_tanh(g);
+    }
+    __syncthreads();
+    for (int i = tid; i < R * C; i += blockDim.x) {
+      const int r = i / C, c = i % C;
+      float s = 0.f;
+      for (int j = 0; j < nh; ++j) s += a_s[r * GH + j] * to_f(downw[(size_t)(hc0 + j) * C + c]);
+      acc_s[i] += s;
+    }
+    __syncthreads();
+  }
+
+  for (int i = tid; i < R * C; i += blockDim.x) {
+    const int t = t0 + i / C, c = i % C;
+    if (t < T)
+      ob[(size_t)t * C + c] =
+          __float2bfloat16(to_f(xb[(size_t)t * C + c]) + acc_s[i] + to_f(downb[c]));
+  }
+}
+
+int launch_generic(const void* x, const void* norm, const void* dww, const void* dwb,
+                   const void* upw, const void* upb, const void* downw, const void* downb,
+                   void* out, int B, int T, int C, int H, float eps, cudaStream_t stream) {
+  int R = GR;
+  while (R > 1 && generic_smem(R, C) > GSMEM_MAX) --R;
+  const size_t smem = generic_smem(R, C);
+  if (smem > GSMEM_MAX) return (int)cudaErrorInvalidValue;
+  static const cudaError_t attr = allow_smem(convnext_generic_kernel, GSMEM_MAX);
+  if (attr != cudaSuccess) return (int)attr;
+  dim3 grid((T + R - 1) / R, B);
+  convnext_generic_kernel<<<grid, WARPS * 32, smem, stream>>>(
+      (const bf16*)x, (const bf16*)norm, (const bf16*)dww, (const bf16*)dwb,
+      (const bf16*)upw, (const bf16*)upb, (const bf16*)downw, (const bf16*)downb,
+      (bf16*)out, T, C, H, R, eps);
+  return (int)cudaGetLastError();
+}
+
 template <int C>
 int launch(const void* x, const void* norm, const void* dww, const void* dwb,
            const void* upw, const void* upb, const void* downw, const void* downb,
@@ -201,23 +311,28 @@ int launch(const void* x, const void* norm, const void* dww, const void* dwb,
 
 }  // namespace
 
-// x, out (B, T, C) bf16; norm, dwb, downb (C,); dww (7, C); upw (C, 4C);
-// upb (4C,); downw (2C, C); all bf16. C in {16, 32, 64, 128, 256, 512}.
+// x, out (B, T, C) bf16; norm, dwb, downb (C,); dww (7, C); upw (C, 2H);
+// upb (2H,); downw (H, C); all bf16. Any C >= 1 and H >= 1: C in
+// {16, 32, 64, 128, 256, 512} with H = 2C take the tensor-core instances,
+// every other width the generic one.
 extern "C" int kt_convnext_block(const void* x, const void* norm, const void* dww,
                                  const void* dwb, const void* upw, const void* upb,
                                  const void* downw, const void* downb, void* out, int B,
-                                 int T, int C, float eps, void* stream) {
+                                 int T, int C, int H, float eps, void* stream) {
+  if (B < 1 || T < 1 || C < 1 || H < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
 #define KT_CASE(c) \
   case c: return launch<c>(x, norm, dww, dwb, upw, upb, downw, downb, out, B, T, eps, s);
-  switch (C) {
-    KT_CASE(16)
-    KT_CASE(32)
-    KT_CASE(64)
-    KT_CASE(128)
-    KT_CASE(256)
-    KT_CASE(512)
+  if (H == 2 * C) {
+    switch (C) {
+      KT_CASE(16)
+      KT_CASE(32)
+      KT_CASE(64)
+      KT_CASE(128)
+      KT_CASE(256)
+      KT_CASE(512)
+    }
   }
 #undef KT_CASE
-  return (int)cudaErrorInvalidValue;
+  return launch_generic(x, norm, dww, dwb, upw, upb, downw, downb, out, B, T, C, H, eps, s);
 }

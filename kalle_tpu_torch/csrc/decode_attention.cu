@@ -3,7 +3,8 @@
 //
 // Replaces: kalle_tpu/ops/pallas/decode_attention.py:320
 // `decode_attention_cached` (kernels `_kernel` :58, `_kernel_single` :141),
-// without the serving sideband column.
+// with its serving sideband column (`_sideband_scores` :44 and the merges
+// at :119-138 and :174-187).
 //
 // Bound on the H100: bytes. One step of one layer reads the layer's K and
 // V (B * nkv * C * hd elements each) once and does 4 flops per element read
@@ -24,6 +25,14 @@
 // scale on the score column, the V scale on the probability.
 // Masked columns score NEG_INF exactly as `ops.attention.mha` does, so a
 // row with no valid key averages V like the JAX paths.
+// Sideband mode (continuous-batching serving): the block reads the cache
+// BEFORE this step's write, and this step's K/V column (k_new, v_new
+// (B, nkv, hd)) joins each query head's online softmax after the last
+// tile: warp g scores it against its query row, rescales its m and l, and
+// every thread rescales its accumulators and adds p * v_new. A row whose
+// new_valid flag is clear scores the column NEG_INF, as a masked cache
+// column, so it drops out wherever the row has any valid key. The column
+// is one extra key, so the mode costs one more warp reduction a head.
 #include "common.cuh"
 
 #include <math_constants.h>
@@ -85,8 +94,9 @@ __global__ void __launch_bounds__(THREADS)
 decode_attention_kernel(const T* __restrict__ q, const KV* __restrict__ k,
                         const KV* __restrict__ v, const uint8_t* __restrict__ mask,
                         const float* __restrict__ k_scale,
-                        const float* __restrict__ v_scale, T* __restrict__ out,
-                        int nkv, int ghd, int hd, int C) {
+                        const float* __restrict__ v_scale, const KV* __restrict__ k_new,
+                        const KV* __restrict__ v_new, const uint8_t* __restrict__ new_valid,
+                        T* __restrict__ out, int nkv, int ghd, int hd, int C) {
   __shared__ float q_s[MAXG][MAXHD];
   __shared__ float p_s[MAXG][TC];
   __shared__ float m_s[MAXG], l_s[MAXG], corr_s[MAXG];
@@ -171,6 +181,34 @@ decode_attention_kernel(const T* __restrict__ q, const KV* __restrict__ k,
     __syncthreads();
   }
 
+  if (k_new != nullptr) {
+    // 5. sideband: this step's column, one more key after the last tile
+    if (warp < ghd) {
+      const KV* kn = k_new + (size_t)bh * hd;
+      float s = 0.f;
+      for (int d = lane; d < hd; d += 32) s += q_s[warp][d] * to_f(kn[d]);
+      s = warp_sum(s);
+      if (!new_valid[b]) s = NEG_INF;
+      if (lane == 0) {
+        const float m_old = m_s[warp], m_new = fmaxf(m_old, s);
+        const float corr = __expf(m_old - m_new), p = __expf(s - m_new);
+        corr_s[warp] = corr;
+        p_s[warp][0] = p;
+        m_s[warp] = m_new;
+        l_s[warp] = l_s[warp] * corr + p;
+      }
+    }
+    __syncthreads();
+    const KV* vn = v_new + (size_t)bh * hd;
+#pragma unroll
+    for (int j = 0; j < MAXO; ++j) {
+      const int o = tid + j * THREADS;
+      if (o >= ghd * hd) break;
+      const int g = o / hd;
+      acc[j] = acc[j] * corr_s[g] + p_s[g][0] * to_f(vn[o % hd]);
+    }
+  }
+
 #pragma unroll
   for (int j = 0; j < MAXO; ++j) {
     const int o = tid + j * THREADS;
@@ -181,15 +219,17 @@ decode_attention_kernel(const T* __restrict__ q, const KV* __restrict__ k,
 
 template <typename T, typename KV, bool QUANT>
 int launch(const void* q, const void* k, const void* v, const void* mask,
-           const void* ks, const void* vs, void* out, int B, int nkv, int ghd,
-           int hd, int C, cudaStream_t stream) {
+           const void* ks, const void* vs, const void* kn, const void* vn,
+           const void* nv, void* out, int B, int nkv, int ghd, int hd, int C,
+           cudaStream_t stream) {
   auto kern = decode_attention_kernel<T, KV, QUANT>;
   const size_t smem = 2 * (size_t)hd * TC * sizeof(KV);
   static const cudaError_t attr = allow_smem(kern, (size_t)MAXHD * TC * 2 * sizeof(KV));
   if (attr != cudaSuccess) return (int)attr;
   kern<<<B * nkv, THREADS, smem, stream>>>(
       (const T*)q, (const KV*)k, (const KV*)v, (const uint8_t*)mask,
-      (const float*)ks, (const float*)vs, (T*)out, nkv, ghd, hd, C);
+      (const float*)ks, (const float*)vs, (const KV*)kn, (const KV*)vn, (const uint8_t*)nv,
+      (T*)out, nkv, ghd, hd, C);
   return (int)cudaGetLastError();
 }
 
@@ -197,22 +237,28 @@ int launch(const void* q, const void* k, const void* v, const void* mask,
 
 // q (B, nkv*ghd, hd); k, v point at layer li of the stacked cache:
 // k (B, nkv, hd, C), v (B, nkv, C, hd); mask (B, C) bytes; k_scale, v_scale
-// (B, nkv, 1, C) f32 for an int8 cache, else null. dtype: 0 f32, 1 bf16.
+// (B, nkv, 1, C) f32 for an int8 cache, else null; k_new, v_new (B, nkv, hd)
+// in the cache's dtype and new_valid (B,) bytes for the sideband column,
+// else all three null (an int8 cache takes no sideband). dtype: 0 f32, 1 bf16.
 extern "C" int kt_decode_attention(const void* q, const void* k, const void* v,
                                    const void* mask, const void* k_scale,
-                                   const void* v_scale, void* out, int B, int nkv,
-                                   int ghd, int hd, int C, int dtype, int kv_int8,
-                                   void* stream) {
+                                   const void* v_scale, const void* k_new,
+                                   const void* v_new, const void* new_valid, void* out,
+                                   int B, int nkv, int ghd, int hd, int C, int dtype,
+                                   int kv_int8, void* stream) {
   if (ghd < 1 || ghd > MAXG || hd < 1 || hd > MAXHD) return (int)cudaErrorInvalidValue;
+  if ((k_new != nullptr) != (v_new != nullptr) || (k_new != nullptr) != (new_valid != nullptr) ||
+      (k_new != nullptr && kv_int8))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 1) {
-    return kv_int8 ? launch<bf16, int8_t, true>(q, k, v, mask, k_scale, v_scale, out, B,
-                                                nkv, ghd, hd, C, s)
-                   : launch<bf16, bf16, false>(q, k, v, mask, k_scale, v_scale, out, B,
-                                               nkv, ghd, hd, C, s);
+    return kv_int8 ? launch<bf16, int8_t, true>(q, k, v, mask, k_scale, v_scale, k_new, v_new,
+                                                new_valid, out, B, nkv, ghd, hd, C, s)
+                   : launch<bf16, bf16, false>(q, k, v, mask, k_scale, v_scale, k_new, v_new,
+                                               new_valid, out, B, nkv, ghd, hd, C, s);
   }
-  return kv_int8 ? launch<float, int8_t, true>(q, k, v, mask, k_scale, v_scale, out, B,
-                                               nkv, ghd, hd, C, s)
-                 : launch<float, float, false>(q, k, v, mask, k_scale, v_scale, out, B,
-                                               nkv, ghd, hd, C, s);
+  return kv_int8 ? launch<float, int8_t, true>(q, k, v, mask, k_scale, v_scale, k_new, v_new,
+                                               new_valid, out, B, nkv, ghd, hd, C, s)
+                 : launch<float, float, false>(q, k, v, mask, k_scale, v_scale, k_new, v_new,
+                                               new_valid, out, B, nkv, ghd, hd, C, s);
 }

@@ -5,10 +5,13 @@
 // `_qmm_kernel_noscale` :49) and :151 `fused_mlp` (`_fused_mlp_kernel` :85,
 // `_fused_mlp_kernel_noscale` :108).
 //
-// Bound on the H100: bytes. A decode step multiplies M <= 64 activation
-// rows by every weight once; with int8 weights that is 2*M flops per
-// weight byte (64 at M = 32), far below the ~295 flop/byte the tensor
+// Bound on the H100: bytes. A decode step multiplies M activation rows
+// (the batch) by every weight once; with int8 weights that is 2*M flops
+// per weight byte (64 at M = 32), far below the ~295 flop/byte the tensor
 // cores need, so the time floor is the weight stream over 3.35 TB/s.
+// A block holds up to 64 rows in registers; the entry points take any M in
+// one launch whose grid has a row of blocks per 64-row tile (a batch above
+// 64 streams the weights once a tile).
 //
 // Design. Weights are read from device memory exactly once, 16 bytes a
 // load, converted int8 -> bf16 in registers (exact: |q| <= 127) and staged
@@ -44,6 +47,7 @@ constexpr int KC = 64;       // weight rows per chunk (2 per lane)
 constexpr int SLD = BN + 8;  // slab row stride, bf16 elements (80 bytes)
 constexpr int FT = 64;       // K3: FFN columns per block
 constexpr int HLD = FT + 8;  // K3: h row stride, bf16 elements
+constexpr int MTILE = 64;    // rows a block holds (blockIdx.y picks the tile)
 
 typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
 typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
@@ -180,7 +184,10 @@ qmm_kernel(const bf16* __restrict__ x, const W* __restrict__ w,
            const float* __restrict__ scale, bf16* __restrict__ out, int M, int K, int N) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int n0 = blockIdx.x * BN;
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * MTILE;
+  x += (size_t)m0 * K;
+  out += (size_t)m0 * N;
+  M = min(M - m0, MTILE);
   bf16* slab = reinterpret_cast<bf16*>(smem) + warp * KC * SLD;
   float* red = reinterpret_cast<float*>(smem);  // reused after the stream
 
@@ -207,15 +214,16 @@ int qmm_launch(const void* x, const void* w, const void* scale, void* out, int M
   const size_t smem = qmm_smem<MT>();
   static const cudaError_t attr = allow_smem(kern, smem);  // once per instantiation
   if (attr != cudaSuccess) return (int)attr;
-  kern<<<N / BN, WARPS * 32, smem, stream>>>((const bf16*)x, (const W*)w,
-                                             (const float*)scale, (bf16*)out, M, K, N);
+  const dim3 grid(N / BN, (M + MTILE - 1) / MTILE);
+  kern<<<grid, WARPS * 32, smem, stream>>>((const bf16*)x, (const W*)w,
+                                           (const float*)scale, (bf16*)out, M, K, N);
   return (int)cudaGetLastError();
 }
 
 template <typename W>
 int qmm_dispatch(const void* x, const void* w, const void* scale, void* out, int M, int K,
                  int N, cudaStream_t s) {
-  switch ((M + 15) / 16) {
+  switch ((min(M, MTILE) + 15) / 16) {
     case 1: return qmm_launch<W, 1>(x, w, scale, out, M, K, N, s);
     case 2: return qmm_launch<W, 2>(x, w, scale, out, M, K, N, s);
     case 3: return qmm_launch<W, 3>(x, w, scale, out, M, K, N, s);
@@ -240,7 +248,10 @@ fused_mlp_kernel(const bf16* __restrict__ x, const W* __restrict__ wg,
                  float* __restrict__ acc_out, int M, int H, int F) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int f0 = blockIdx.x * FT;
+  const int f0 = blockIdx.x * FT, m0 = blockIdx.y * MTILE;
+  x += (size_t)m0 * H;
+  acc_out += (size_t)m0 * H;
+  M = min(M - m0, MTILE);
   bf16* h_s = reinterpret_cast<bf16*>(smem);                      // (MT*16, HLD)
   bf16* slab = h_s + MT * 16 * HLD + warp * KC * SLD;               // (KC, SLD)
   float* red = reinterpret_cast<float*>(h_s + MT * 16 * HLD + WARPS * KC * SLD);
@@ -268,11 +279,13 @@ fused_mlp_kernel(const bf16* __restrict__ x, const W* __restrict__ wg,
   }
   __syncthreads();
 
-  // phase 2: this block's 64 rows of wd against h; warp owns H/WARPS
-  // columns, one 32-column slab at a time, the next slab's rows in flight
-  const int cols = H / WARPS, n_begin = warp * cols, n_end = n_begin + cols;
+  // phase 2: this block's 64 rows of wd against h; warp owns a run of
+  // H/WARPS columns (rounded up to whole 32-column slabs; the last warps'
+  // runs end at H), one slab at a time, the next slab's rows in flight
+  const int cols = (H / BN + WARPS - 1) / WARPS * BN;
+  const int n_begin = warp * cols, n_end = min(n_begin + cols, H);
   Chunk<W> ring[2];
-  ring[0].load(wd, f0, H, n_begin, lane);
+  if (n_begin < n_end) ring[0].load(wd, f0, H, n_begin, lane);
   for (int base = n_begin; base < n_end; base += 2 * BN) {
 #pragma unroll
     for (int d = 0; d < 2; ++d) {
@@ -319,7 +332,8 @@ int mlp_launch(const void* x, const void* wg, const void* gs, const void* wu,
   if (attr != cudaSuccess) return (int)attr;
   cudaError_t e = cudaMemsetAsync(scratch, 0, (size_t)M * H * sizeof(float), stream);
   if (e != cudaSuccess) return (int)e;
-  kern<<<F / FT, WARPS * 32, smem, stream>>>(
+  const dim3 grid(F / FT, (M + MTILE - 1) / MTILE);
+  kern<<<grid, WARPS * 32, smem, stream>>>(
       (const bf16*)x, (const W*)wg, (const float*)gs, (const W*)wu, (const float*)us,
       (const W*)wd, (float*)scratch, M, H, F);
   e = cudaGetLastError();
@@ -333,7 +347,7 @@ template <typename W>
 int mlp_dispatch(const void* x, const void* wg, const void* gs, const void* wu,
                  const void* us, const void* wd, const void* ds, void* scratch, void* out,
                  int M, int H, int F, cudaStream_t s) {
-  switch ((M + 15) / 16) {
+  switch ((min(M, MTILE) + 15) / 16) {
     case 1: return mlp_launch<W, 1>(x, wg, gs, wu, us, wd, ds, scratch, out, M, H, F, s);
     case 2: return mlp_launch<W, 2>(x, wg, gs, wu, us, wd, ds, scratch, out, M, H, F, s);
     case 3: return mlp_launch<W, 3>(x, wg, gs, wu, us, wd, ds, scratch, out, M, H, F, s);
@@ -344,24 +358,25 @@ int mlp_dispatch(const void* x, const void* wg, const void* gs, const void* wu,
 
 }  // namespace
 
-// x (ceil16(M), K) bf16, rows >= M zero; w (K, N) int8 (w_int8=1) or bf16;
-// scale (N,) f32 or null; out (M, N) bf16. K % 64 == 0, N % 32 == 0, M <= 64.
+// x (R, K) bf16, R = M rounded up to 16 (M <= 64) or to 64, rows >= M
+// zero; w (K, N) int8 (w_int8=1) or bf16; scale (N,) f32 or null; out
+// (M, N) bf16. K % 64 == 0, N % 32 == 0, any M >= 1, one launch.
 extern "C" int kt_qmm(const void* x, const void* w, const void* scale, void* out, int M,
                       int K, int N, int w_int8, void* stream) {
-  if (M < 1 || M > 64 || K % KC || N % BN) return (int)cudaErrorInvalidValue;
+  if (M < 1 || K % KC || N % BN) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   return w_int8 ? qmm_dispatch<int8_t>(x, w, scale, out, M, K, N, s)
                 : qmm_dispatch<bf16>(x, w, scale, out, M, K, N, s);
 }
 
-// x (ceil16(M), H) bf16, rows >= M zero; wg, wu (H, F), wd (F, H) int8 or
-// bf16; gs, us (F,), ds (H,) f32 or null; scratch (M, H) f32; out (M, H)
-// bf16. H % 256 == 0, F % 64 == 0, M <= 64.
+// x (R, H) bf16, R as for kt_qmm, rows >= M zero; wg, wu (H, F), wd (F, H)
+// int8 or bf16; gs, us (F,), ds (H,) f32 or null; scratch (M, H) f32; out
+// (M, H) bf16. H % 64 == 0, F % 64 == 0, any M >= 1: one launch of the MLP
+// kernel, between a memset of scratch and the scale-and-round kernel.
 extern "C" int kt_fused_mlp(const void* x, const void* wg, const void* gs, const void* wu,
                             const void* us, const void* wd, const void* ds, void* scratch,
                             void* out, int M, int H, int F, int w_int8, void* stream) {
-  if (M < 1 || M > 64 || H % (WARPS * BN) || H % KC || F % FT)
-    return (int)cudaErrorInvalidValue;
+  if (M < 1 || H % KC || F % FT) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   return w_int8 ? mlp_dispatch<int8_t>(x, wg, gs, wu, us, wd, ds, scratch, out, M, H, F, s)
                 : mlp_dispatch<bf16>(x, wg, gs, wu, us, wd, ds, scratch, out, M, H, F, s);

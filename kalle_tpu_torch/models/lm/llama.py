@@ -11,14 +11,17 @@ The KV cache keeps the JAX package's layout too — keys transposed per head
 `forward_with_cache` writes the new entries into the caller's cache and
 returns that same object.
 
-Which path a layer takes goes by shape: a t=1 step with a cache (the
-decode step) goes through the kernel wrappers — K1 decode attention for
-attention, K2 `qmm` for wq/wk/wv/wo and K3 `fused_mlp` for the MLP — which
-launch the CUDA kernels on the card and run their plain versions on the
-CPU. Prefill (t>1) uses `mha_t` and `maybe_matmul` in plain PyTorch, as the
-JAX package leaves it to XLA. The JAX gate that keeps small batches and
-int8 KV caches off its decode kernel was measured on a TPU; here every t=1
-step takes K1.
+Which path a layer takes goes by shape and weights: a t=1 step with a
+cache (the decode step) attends through K1 decode attention, and its int8
+weights stream through K2 `qmm` (wq/wk/wv/wo) and K3 `fused_mlp` (the MLP);
+the wrappers launch the CUDA kernels on the card and run their plain
+versions on the CPU. Dense weights take `maybe_matmul` in every step, as
+the JAX package leaves its decode matmuls to XLA (kalle_tpu/models/lm/
+llama.py:236-243): the route is chosen here, at the call site, and a
+kernel wrapper raises on what its kernel cannot take. Prefill (t>1) uses
+`mha_t` and `maybe_matmul` in plain PyTorch. The JAX gate that keeps small
+batches and int8 KV caches off its decode kernel was measured on a TPU;
+here every t=1 step takes K1.
 
 The training forward (`forward`) attends through K5-K7
 (`ops/kernels/flash_attention.py`, forward and backward) when flash is on
@@ -188,12 +191,21 @@ def embed_tokens(params: dict, input_ids: torch.Tensor, cfg: LlamaConfig) -> tor
 # ---------------------------------------------------------------------------
 
 def _proj(x: torch.Tensor, w, decode: bool) -> torch.Tensor:
-    """x (..., in) @ w: the decode step streams w through K2."""
-    if not decode:
+    """x (..., in) @ w: the decode step streams int8 weights through K2."""
+    if not (decode and is_quantized(w)):
         return maybe_matmul(x, w)
-    q, scale = (w["q"], w["scale"]) if is_quantized(w) else (w, None)
-    return qmm(x.reshape(-1, x.shape[-1]), q, scale).reshape(
-        *x.shape[:-1], q.shape[-1])
+    return qmm(x.reshape(-1, x.shape[-1]), w["q"], w["scale"]).reshape(
+        *x.shape[:-1], w["q"].shape[-1])
+
+
+def _mlp(x: torch.Tensor, lp: dict, decode: bool) -> torch.Tensor:
+    """SwiGLU MLP of x (..., h): the decode step streams int8 weights
+    through K3."""
+    if decode and is_quantized(lp["wg"]):
+        return fused_mlp(x.reshape(-1, x.shape[-1]), lp["wg"], lp["wu"],
+                         lp["wd"]).reshape(x.shape)
+    gate = F.silu(maybe_matmul(x, lp["wg"]))
+    return maybe_matmul(gate * maybe_matmul(x, lp["wu"]), lp["wd"])
 
 
 def _layer(cfg: LlamaConfig, x: torch.Tensor, lp: dict, cos, sin, mask,
@@ -205,7 +217,7 @@ def _layer(cfg: LlamaConfig, x: torch.Tensor, lp: dict, cos, sin, mask,
     writes its K/V at slots [cache.length, cache.length + t) of layer `li`
     and attends over that layer of the cache."""
     dt = x.dtype
-    b, t, h = x.shape
+    b, t, _ = x.shape
     nq, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     decode = t == 1 and cache is not None
 
@@ -241,12 +253,7 @@ def _layer(cfg: LlamaConfig, x: torch.Tensor, lp: dict, cos, sin, mask,
             attn = mha_t(q, kt_l, vt_l, mask)
 
     x = x + _proj(attn.reshape(b, t, nq * hd), lp["wo"], decode)
-    mlp_in = rms_norm(x, lp["mlp_norm"].to(dt), cfg.rms_norm_eps)
-    if decode:
-        return x + fused_mlp(mlp_in.reshape(b, h), lp["wg"], lp["wu"],
-                             lp["wd"]).reshape(b, 1, h)
-    gate = F.silu(maybe_matmul(mlp_in, lp["wg"]))
-    return x + maybe_matmul(gate * maybe_matmul(mlp_in, lp["wu"]), lp["wd"])
+    return x + _mlp(rms_norm(x, lp["mlp_norm"].to(dt), cfg.rms_norm_eps), lp, decode)
 
 
 def forward_with_cache(

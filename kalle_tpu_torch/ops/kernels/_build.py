@@ -12,8 +12,12 @@ source, all at once. nvcc's resource report (-Xptxas -v) is kept beside
 each library as `<lib>.log`.
 
 Every C entry point returns `cudaGetLastError()`; `check()` raises on any
-code but 0. `LAUNCHES` counts the launches of each wrapper: a wrapper adds
-one where it launches its kernel and nowhere else.
+code but 0. `count()` adds one launch of a wrapper's kernel: a wrapper
+calls it where it launches its kernel (one launch a call) and nowhere
+else; `launches()` reads the counts and `reset_launches()` clears them.
+Loading and counting share one lock, so the wrappers may be called from
+several threads (the serving decode thread and the HTTP handlers' codec
+decodes).
 """
 from __future__ import annotations
 
@@ -39,14 +43,26 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 P = ctypes.c_void_p
 I = ctypes.c_int
 
-LAUNCHES: collections.Counter = collections.Counter()
-
+_launches: collections.Counter = collections.Counter()
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 
 
 def reset_launches() -> None:
-    LAUNCHES.clear()
+    with _lock:
+        _launches.clear()
+
+
+def count(name: str) -> None:
+    """One launch of the wrapper `name`'s kernel."""
+    with _lock:
+        _launches[name] += 1
+
+
+def launches() -> Dict[str, int]:
+    """A copy of the counts."""
+    with _lock:
+        return dict(_launches)
 
 
 def nvcc() -> str:

@@ -141,7 +141,7 @@ def flash_fwd(q, k, v, pad) -> Tuple[torch.Tensor, torch.Tensor]:
     rc = lib.kt_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), pad.data_ptr(),
                           o.data_ptr(), lse.data_ptr(), *_dims(q, k))
     _build.check(lib, rc, NAME_FWD)
-    _build.LAUNCHES[NAME_FWD] += 1
+    _build.count(NAME_FWD)
     return o, lse
 
 
@@ -156,7 +156,7 @@ def flash_bwd_dq(q, k, v, pad, do, lse, delta) -> torch.Tensor:
                              do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                              dq.data_ptr(), *_dims(q, k))
     _build.check(lib, rc, NAME_DQ)
-    _build.LAUNCHES[NAME_DQ] += 1
+    _build.count(NAME_DQ)
     return dq
 
 
@@ -171,7 +171,7 @@ def flash_bwd_dkv(q, k, v, pad, do, lse, delta) -> Tuple[torch.Tensor, torch.Ten
                               do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                               dk.data_ptr(), dv.data_ptr(), *_dims(q, k))
     _build.check(lib, rc, NAME_DKV)
-    _build.LAUNCHES[NAME_DKV] += 1
+    _build.count(NAME_DKV)
     return dk, dv
 
 

@@ -2,8 +2,9 @@
 
 Mirror kalle_tpu/ops/pallas/qmm.py:54 `qmm` and :114 `fused_mlp`. On CUDA
 tensors they launch `csrc/qmm.cu` (bf16 activations, int8 or bf16
-weights, M <= 64 rows); on CPU tensors they run the plain versions below,
-which repeat the kernels' arithmetic in PyTorch.
+weights, any number of rows M in one launch: the grid has a row of blocks
+per 64-row tile); on CPU tensors they run the plain versions below, which
+repeat the kernels' arithmetic in PyTorch.
 """
 from __future__ import annotations
 
@@ -49,9 +50,9 @@ def fused_mlp_plain(x: torch.Tensor, wg, wu, wd) -> torch.Tensor:
 
 def _takes(x: torch.Tensor, weights, shapes) -> bool:
     """Whether the kernels take x and these (weight, scale) pairs: bf16 x
-    (M <= 64, K) and weights of one dtype (int8 or bf16) of the given
+    (M >= 1, K) and weights of one dtype (int8 or bf16) of the given
     shapes, all contiguous and 32-byte aligned, with f32 (N,) scales or none."""
-    return (x.dim() == 2 and x.dtype == torch.bfloat16 and 1 <= x.shape[0] <= 64
+    return (x.dim() == 2 and x.dtype == torch.bfloat16 and x.shape[0] >= 1
             and x.shape[1] == shapes[0][0] and _build.aligned(x)
             and len({w.dtype for w, _ in weights}) == 1
             and weights[0][0].dtype in (torch.int8, torch.bfloat16)
@@ -62,11 +63,14 @@ def _takes(x: torch.Tensor, weights, shapes) -> bool:
 
 
 def _pad_rows(x: torch.Tensor) -> torch.Tensor:
-    """The kernels read x in 16-row tiles: zero rows up to a multiple of 16."""
+    """The kernels read x in 16-row fragments, each block up to 64 rows:
+    zero rows up to a multiple of 16 (M <= 64) or of 64 (every block of a
+    larger M reads a whole 64-row tile)."""
     m = x.shape[0]
-    if m % 16 == 0:
+    tile = 16 if m <= 64 else 64
+    if m % tile == 0:
         return x
-    xp = torch.zeros((-(-m // 16) * 16, x.shape[1]), dtype=x.dtype, device=x.device)
+    xp = torch.zeros((-(-m // tile) * tile, x.shape[1]), dtype=x.dtype, device=x.device)
     xp[:m] = x
     return xp
 
@@ -79,7 +83,7 @@ def qmm(x: torch.Tensor, w: torch.Tensor,
         return qmm_plain(x, w, scale)
     k, n = w.shape
     if not (_takes(x, [(w, scale)], [(k, n)]) and k % 64 == 0 and n % 32 == 0):
-        raise ValueError("qmm takes contiguous bf16 x (M <= 64, K) and an int8 or bf16 "
+        raise ValueError("qmm takes contiguous bf16 x (M, K) and an int8 or bf16 "
                          "(K, N) weight with K % 64 == 0, N % 32 == 0 and an f32 (N,) "
                          "scale or none; got " + _build.describe(*tensors))
     m = x.shape[0]
@@ -89,7 +93,7 @@ def qmm(x: torch.Tensor, w: torch.Tensor,
     rc = lib.kt_qmm(xp.data_ptr(), w.data_ptr(), _build.ptr(scale), out.data_ptr(),
                     m, k, n, int(w.dtype == torch.int8), _build.stream())
     _build.check(lib, rc, NAME_QMM)
-    _build.LAUNCHES[NAME_QMM] += 1
+    _build.count(NAME_QMM)
     return out
 
 
@@ -102,10 +106,10 @@ def fused_mlp(x: torch.Tensor, wg, wu, wd) -> torch.Tensor:
         return fused_mlp_plain(x, wg, wu, wd)
     h, f = gq.shape
     if not (_takes(x, [(gq, gs), (uq, us), (dq, ds)], [(h, f), (h, f), (f, h)])
-            and h % 256 == 0 and f % 64 == 0):
-        raise ValueError("fused_mlp takes contiguous bf16 x (M <= 64, H) and wg, wu "
+            and h % 64 == 0 and f % 64 == 0):
+        raise ValueError("fused_mlp takes contiguous bf16 x (M, H) and wg, wu "
                          "(H, F), wd (F, H) of one dtype, int8 with f32 scales or bf16, "
-                         "H % 256 == 0, F % 64 == 0; got " + _build.describe(*tensors))
+                         "H % 64 == 0, F % 64 == 0; got " + _build.describe(*tensors))
     m = x.shape[0]
     xp = _pad_rows(x)
     scratch = torch.empty((m, h), dtype=torch.float32, device=x.device)
@@ -116,5 +120,5 @@ def fused_mlp(x: torch.Tensor, wg, wu, wd) -> torch.Tensor:
                           scratch.data_ptr(), out.data_ptr(), m, h, f,
                           int(gq.dtype == torch.int8), _build.stream())
     _build.check(lib, rc, NAME_MLP)
-    _build.LAUNCHES[NAME_MLP] += 1
+    _build.count(NAME_MLP)
     return out

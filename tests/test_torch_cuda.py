@@ -1,9 +1,13 @@
 """The port's CUDA kernels against their plain versions on the card, at
 small and ragged shapes the main path does not reach (C not a multiple of
-128, T not a multiple of the time tile, M not a multiple of 16, f32 and
-int8 caches, dense bf16 weights; flash attention at t 128 and 384 with
-fully masked rows, f32 and bf16), and one flash train_step against the
-plain path. Needs an NVIDIA GPU and nvcc; skipped elsewhere. On the card (this file imports no JAX, so no conftest):
+128, T not a multiple of the time tile, M not a multiple of 16 and above
+64, f32 and int8 caches, K1's sideband, dense bf16 weights, ConvNeXt
+widths outside the decoder's and mlp_ratio 3; flash attention at t 128 and
+384 with fully masked rows, f32 and bf16), one flash train_step against the
+plain path, and whole paths on the card against the CPU: `generate` on the
+tiny f32 config and at batch 72, the tiny codec in bf16, and the
+continuous batcher. Needs an NVIDIA GPU and nvcc; skipped elsewhere. On
+the card (this file imports no JAX, so no conftest):
 
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_cuda.py
 """
@@ -50,15 +54,36 @@ def test_decode_attention(g, dtype, c, int8):
         kt = torch.round(kt.float() / ks).to(torch.int8)
         v = torch.round(v.float() / vs).to(torch.int8)
         vs = vs.transpose(-1, -2).contiguous()
-    before = _build.LAUNCHES[k1.NAME]
+    before = _build.launches().get(k1.NAME, 0)
     got = k1.decode_attention_cached(q, kt, v, 1, mask, ks, vs)
-    assert _build.LAUNCHES[k1.NAME] == before + 1
+    assert _build.launches().get(k1.NAME, 0) == before + 1
     _close(got, k1.decode_attention_plain(q, kt, v, 1, mask, ks, vs),
            2e-2 if dtype == BF else 1e-4)
 
 
+@pytest.mark.parametrize("dtype,c", [(BF, 384), (torch.float32, 200), (BF, 128)])
+def test_decode_attention_sideband(g, dtype, c):
+    """The serving mode: the new column joins the softmax where new_valid
+    is set; row 2 has no valid key before this step, row 3 none and a dead
+    column."""
+    L, b, nq, nkv, hd = 2, 5, 32, 8, 64
+    q = torch.randn(b, nq, hd, generator=g, device="cuda").to(dtype)
+    kt = torch.randn(L, b, nkv, hd, c, generator=g, device="cuda").to(dtype)
+    v = torch.randn(L, b, nkv, c, hd, generator=g, device="cuda").to(dtype)
+    kn, vn = (torch.randn(b, nkv, hd, generator=g, device="cuda").to(dtype) for _ in range(2))
+    mask = torch.rand(b, c, generator=g, device="cuda") > 0.3
+    mask[2:4] = False
+    live = torch.tensor([True, False, True, False, True], device="cuda")
+    before = _build.launches().get(k1.NAME_SIDEBAND, 0)
+    got = k1.decode_attention_cached(q, kt, v, 1, mask, k_new=kn, v_new=vn, new_valid=live)
+    assert _build.launches().get(k1.NAME_SIDEBAND, 0) == before + 1
+    _close(got, k1.decode_attention_plain(q, kt, v, 1, mask, k_new=kn, v_new=vn,
+                                          new_valid=live), 2e-2 if dtype == BF else 1e-4)
+
+
 @pytest.mark.parametrize("m,k,n,int8", [(5, 128, 96, True), (32, 2048, 512, True),
-                                        (40, 256, 64, False), (64, 512, 128, True)])
+                                        (40, 256, 64, False), (64, 512, 128, True),
+                                        (72, 256, 128, True), (130, 128, 64, False)])
 def test_qmm(g, m, k, n, int8):
     w = torch.randn(k, n, generator=g, device="cuda") * 0.05
     scale = None
@@ -68,12 +93,15 @@ def test_qmm(g, m, k, n, int8):
     else:
         w = w.to(BF)
     x = torch.randn(m, k, generator=g, device="cuda").to(BF)
+    before = _build.launches().get(k23.NAME_QMM, 0)
     got, ref = k23.qmm(x, w, scale), k23.qmm_plain(x, w, scale)
+    assert _build.launches().get(k23.NAME_QMM, 0) == before + 1  # one launch at any M
     assert float((got.float() - ref.float()).abs().max() / ref.float().abs().max()) < 1e-2
 
 
 @pytest.mark.parametrize("m,h,f,int8", [(3, 256, 128, True), (32, 512, 1024, True),
-                                        (17, 256, 192, False)])
+                                        (17, 256, 192, False), (72, 512, 256, True),
+                                        (3, 64, 128, True), (100, 320, 64, False)])
 def test_fused_mlp(g, m, h, f, int8):
     def weight(*shape):
         w = torch.randn(*shape, generator=g, device="cuda") * 0.05
@@ -84,18 +112,24 @@ def test_fused_mlp(g, m, h, f, int8):
 
     ws = weight(h, f), weight(h, f), weight(f, h)
     x = torch.randn(m, h, generator=g, device="cuda").to(BF)
+    before = _build.launches().get(k23.NAME_MLP, 0)
     got, ref = k23.fused_mlp(x, *ws), k23.fused_mlp_plain(x, *ws)
+    assert _build.launches().get(k23.NAME_MLP, 0) == before + 1
     assert float((got.float() - ref.float()).abs().max() / ref.float().abs().max()) < 1e-2
 
 
-@pytest.mark.parametrize("c,t", [(16, 45), (64, 100), (128, 33), (512, 70)])
-def test_convnext_block(g, c, t):
+@pytest.mark.parametrize("c,t,ratio", [(16, 45, 2), (64, 100, 2), (128, 33, 2), (512, 70, 2),
+                                       (4, 33, 2), (8, 20, 2), (48, 50, 2), (64, 40, 3)])
+def test_convnext_block(g, c, t, ratio):
+    """The tensor-core instances (C 16..512, H = 2C) and the generic one
+    (other C, mlp_ratio 3)."""
+    h = ratio * c
+
     def u(*shape, bound=1.0):
         return ((torch.rand(*shape, generator=g, device="cuda") * 2 - 1) * bound).to(BF)
 
-    args = (u(c) + 1, u(7, 1, c, bound=0.4), u(c, bound=0.4), u(1, c, 4 * c, bound=c ** -0.5),
-            u(4 * c, bound=c ** -0.5), u(1, 2 * c, c, bound=(2 * c) ** -0.5),
-            u(c, bound=(2 * c) ** -0.5))
+    args = (u(c) + 1, u(7, 1, c, bound=0.4), u(c, bound=0.4), u(1, c, 2 * h, bound=c ** -0.5),
+            u(2 * h, bound=c ** -0.5), u(1, h, c, bound=h ** -0.5), u(c, bound=h ** -0.5))
     x = torch.randn(2, t, c, generator=g, device="cuda").to(BF)
     _close(k4.convnext_block(x, *args), k4.convnext_block_plain(x, *args), 2e-2)
 
@@ -116,13 +150,28 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(g):
     q = torch.zeros(1, 128, 3, 64, dtype=BF, device="cuda")
     with pytest.raises(ValueError):  # 3 query heads over 2 KV heads
         k567.flash_fwd(q, q[:, :, :2].contiguous(), q[:, :, :2].contiguous(), pad)
-    with pytest.raises(ValueError):  # C=48 has no kernel
+    with pytest.raises(ValueError):  # f32 x: the kernel is bf16
         z = torch.zeros(48, dtype=BF, device="cuda")
-        k4.convnext_block(torch.zeros(1, 8, 48, dtype=BF, device="cuda"), z,
+        k4.convnext_block(torch.zeros(1, 8, 48, device="cuda"), z,
                           torch.zeros(7, 1, 48, dtype=BF, device="cuda"), z,
                           torch.zeros(1, 48, 192, dtype=BF, device="cuda"),
                           torch.zeros(192, dtype=BF, device="cuda"),
                           torch.zeros(1, 96, 48, dtype=BF, device="cuda"), z)
+    with pytest.raises(ValueError):  # up_w of another hidden width than down_w
+        k4.convnext_block(torch.zeros(1, 8, 48, dtype=BF, device="cuda"), z,
+                          torch.zeros(7, 1, 48, dtype=BF, device="cuda"), z,
+                          torch.zeros(1, 48, 96, dtype=BF, device="cuda"),
+                          torch.zeros(96, dtype=BF, device="cuda"),
+                          torch.zeros(1, 96, 48, dtype=BF, device="cuda"), z)
+    kn = torch.zeros(4, 2, 64, dtype=BF, device="cuda")
+    with pytest.raises(ValueError):  # no sideband with an int8 cache
+        s = torch.ones(1, 4, 2, 1, 128, device="cuda")
+        k1.decode_attention_cached(torch.zeros(4, 8, 64, dtype=BF, device="cuda"),
+                                   torch.zeros(1, 4, 2, 64, 128, dtype=torch.int8, device="cuda"),
+                                   torch.zeros(1, 4, 2, 128, 64, dtype=torch.int8, device="cuda"),
+                                   0, torch.ones(4, 128, dtype=torch.bool, device="cuda"), s, s,
+                                   k_new=kn, v_new=kn,
+                                   new_valid=torch.ones(4, dtype=torch.bool, device="cuda"))
 
 
 @pytest.mark.parametrize("dtype,b,t,nq,nkv,hd", [(torch.float32, 3, 128, 4, 2, 32),
@@ -181,12 +230,128 @@ def test_flash_train_step_matches_plain(g, remat):
         state = make_train_state(tree_map(lambda t: t.clone().to(dev), params), tcfg)
         batch = {k: torch.from_numpy(v).to(dev) for k, v in np_batch.items()
                  if isinstance(v, np.ndarray)}
-        before = _build.LAUNCHES[k567.NAME_FWD]
+        before = _build.launches().get(k567.NAME_FWD, 0)
         m = train_step(state, cfg, tcfg, batch, use_flash=True)
         if dev == "cuda":  # K5 once a layer, and again in the backward under remat
-            assert _build.LAUNCHES[k567.NAME_FWD] - before == (2 if remat == "none" else 4)
+            assert _build.launches().get(k567.NAME_FWD, 0) - before == (2 if remat == "none" else 4)
         out.append((float(m["total_loss"]), [p.grad.cpu() for p in tree_leaves(state.params)]))
     (lc, gc), (lg, gg) = out
     assert abs(lg - lc) <= 1e-2 * abs(lc)
     for a, b in zip(gg, gc):  # bf16 compute: 5% of each gradient's largest entry
         assert float((a - b).abs().max()) <= 5e-2 * float(b.abs().max()) + 1e-6
+
+
+def _small_bf16_int8_llasa(b_vocab=300):
+    """A model whose widths the kernels take (hidden 256, heads 4/2 of 64),
+    bf16 with int8 layer weights, random weights from a seed, on the CPU."""
+    from kalle_tpu_torch.bridge import tree_map
+    from kalle_tpu_torch.core.config import LlamaConfig, LlasaConfig
+    from kalle_tpu_torch.models.lm import llasa
+    from kalle_tpu_torch.ops.quant import quantize_llama_params
+
+    llama = LlamaConfig(vocab_size=b_vocab, hidden_size=256, intermediate_size=512,
+                        num_layers=2, num_heads=4, num_kv_heads=2, head_dim=64)
+    cfg = LlasaConfig(llama=llama, latent_dim=64, audio_proj_dim=256)
+    params = llasa.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    return cfg, quantize_llama_params(tree_map(lambda t: t.to(BF), params))
+
+
+def _generate_both(cfg, params, ids, mask, max_frames):
+    from kalle_tpu_torch.bridge import tree_map
+    from kalle_tpu_torch.infer.generate import generate
+
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda t: t.to(dev), params)
+        out[dev] = generate(p, cfg, ids.to(dev), mask.to(dev), max_frames=max_frames,
+                            greedy=True)
+    return out["cpu"], out["cuda"]
+
+
+def test_generate_tiny_f32_on_card(g):
+    """LlamaConfig.tiny() in f32 with dense weights: the decode matmuls take
+    maybe_matmul (no kernel takes f32 activations), attention K1 in f32;
+    the card agrees with the CPU to f32 rounding (matmuls in full f32)."""
+    from kalle_tpu_torch.core.config import LlasaConfig
+    from kalle_tpu_torch.models.lm import llasa
+
+    cfg = LlasaConfig.tiny()
+    params = llasa.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    ids = torch.randint(0, 300, (3, 9), generator=torch.Generator().manual_seed(1))
+    mask = torch.ones_like(ids)
+    mask[1, :4] = 0
+    before = _build.launches()
+    ref, got = _generate_both(cfg, params, ids, mask, 8)
+    assert _build.launches().get(k1.NAME, 0) - before.get(k1.NAME, 0) == 2 * 8
+    assert _build.launches().get(k23.NAME_QMM, 0) == before.get(k23.NAME_QMM, 0)
+    assert torch.equal(got.n_frames.cpu(), ref.n_frames)
+    torch.testing.assert_close(got.means.cpu(), ref.means, atol=1e-4, rtol=1e-3)
+
+
+def test_generate_batch72_on_card(g):
+    """Batch 72 (two 64-row tiles of K2/K3) in bf16 with int8 weights; the
+    card agrees with the CPU's plain versions to bf16 tolerance (5e-2, as
+    chip_smoke's small-input check)."""
+    cfg, params = _small_bf16_int8_llasa()
+    ids = torch.randint(0, 300, (72, 9), generator=torch.Generator().manual_seed(2))
+    mask = torch.ones_like(ids)
+    mask[::5, :3] = 0
+    before = _build.launches().get(k23.NAME_MLP, 0)
+    ref, got = _generate_both(cfg, params, ids, mask, 6)
+    assert _build.launches().get(k23.NAME_MLP, 0) - before == 2 * 6
+    assert torch.equal(got.n_frames.cpu(), ref.n_frames)
+    assert float((got.means.cpu().float() - ref.means.float()).abs().max()) <= 5e-2
+
+
+@pytest.mark.parametrize("mlp_ratio", [2, 3])
+def test_tiny_codec_bf16_on_card(g, mlp_ratio):
+    """SigmaVAEConfig.tiny() (channels 4, 8) in bf16: every residual block
+    goes through K4's generic instance on the card; the wav agrees with
+    the plain path on the CPU to bf16 tolerance."""
+    import dataclasses
+
+    from kalle_tpu_torch.bridge import tree_map
+    from kalle_tpu_torch.infer.pipeline import Codec
+    from kalle_tpu_torch.models.codecs import sigmavae
+
+    vcfg = dataclasses.replace(sigmavae.SigmaVAEConfig.tiny(), mlp_ratio=mlp_ratio)
+    codec = Codec.random_init("sigma", torch.Generator().manual_seed(3), "cpu", cfg=vcfg)
+    codec.astype(BF)
+    z = torch.randn(2, 12, vcfg.latent_dim, generator=torch.Generator().manual_seed(4)).to(BF)
+    ref = sigmavae.decode(codec.params, vcfg, z)
+    before = _build.launches().get(k4.NAME, 0)
+    got = sigmavae.decode(tree_map(lambda t: t.cuda(), codec.params), vcfg, z.cuda())
+    assert _build.launches().get(k4.NAME, 0) - before == len(vcfg.strides) * vcfg.blocks_per_stage
+    assert got.shape == ref.shape and torch.isfinite(got).all()
+    assert float((got.cpu().float() - ref.float()).abs().max()) <= 5e-2
+
+
+@pytest.mark.parametrize("kv", ["bfloat16", "int8"])
+def test_continuous_batcher_on_card(g, kv):
+    """Greedy continuous batching on the card (K1 sideband or int8 mode,
+    K2, K3) against the same batcher on the CPU: five prompts on two rows,
+    so freed rows are refilled."""
+    import dataclasses
+
+    import numpy as np
+
+    from kalle_tpu_torch.bridge import tree_map
+    from kalle_tpu_torch.infer.serve_loop import ContinuousBatcher
+
+    cfg, params = _small_bf16_int8_llasa()
+    cfg = dataclasses.replace(cfg, llama=dataclasses.replace(cfg.llama, kv_cache_dtype=kv))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 300, n) for n in (5, 20, 9, 14, 3)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        cb = ContinuousBatcher(tree_map(lambda t: t.to(dev), params), cfg, batch_size=2,
+                               max_frames=6, prompt_buckets=(8, 32), greedy=True, device=dev)
+        before = _build.launches()
+        out[dev] = {c.index: c for c in cb.run(prompts)}
+        if dev == "cuda":
+            name = k1.NAME_SIDEBAND if kv == "bfloat16" else k1.NAME
+            assert _build.launches().get(name, 0) - before.get(name, 0) == 2 * cb.step_count
+    for i in range(len(prompts)):
+        a, b = out["cuda"][i], out["cpu"][i]
+        assert a.n_frames == b.n_frames == 5 and a.steps_waited == b.steps_waited
+        assert float(np.abs(a.means - b.means).max()) <= 5e-2

@@ -31,4 +31,5 @@ def test_no_jax_or_kalle_tpu_import(path):
 def test_scan_sees_the_package():
     names = {p.name for p in FILES}
     assert {"llama.py", "generate.py", "sigmavae.py", "chip_smoke.py", "flash_attention.py",
-            "trainer.py", "datasets.py", "checkpoint.py"} <= names
+            "trainer.py", "datasets.py", "checkpoint.py", "serve_loop.py", "service.py",
+            "http.py", "web.py"} <= names
