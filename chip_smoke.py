@@ -45,10 +45,14 @@ Phases (any failure exits nonzero and prints no result):
 Phase 2 also holds K5-K7 (flash attention forward, dq, dk/dv) against
 their plain versions at the flagship training shape (b 8, t 512, 32/8
 heads, hd 64, bf16; ragged pads, a left-padded row, a row with no valid
-key), K1's sideband mode at phase 5's shapes (batch 8 and 32, cache 384,
-ragged rows, some rows' new column not counted), and K2 and K3 at both
-serving batches, M 8 and 32 (the kernels line keeps M 32). Launch counts: K1-K4
-from phase 3's run, K5-K7 from phase 4's, K1's sideband from phase 5's
+key) and K5 at hd 128 (b 4, 16/4 heads), K1's sideband mode at phase 5's
+shapes (batch 8 and 32, cache 384, ragged rows, some rows' new column not
+counted), K2 at M 8, 32 and 72 and K3 at both serving batches, M 8 and 32
+(the kernels line keeps M 32), and, once each, the inputs that raised
+before C3's repair: K1 at 16 query heads a KV head and hd 256 in all three
+modes, K2/K3 with f32 activations, and the tiny f32 config with int8
+weights decoding on the card against the CPU. Launch counts: K1-K4 from
+phase 3's run, K5-K7 from phase 4's, K1's sideband from phase 5's
 batch-32 run.
 
 Prints a `kernels` JSON line, the card line, and as its last line
@@ -339,16 +343,19 @@ def log_row(r):
 
 
 def check_qmm(g):
-    """K2 at both serving batches (M 8 and 32 pick different instances);
-    the row of the kernels line is M = 32, M = 8 is logged."""
+    """K2 at both serving batches (M 8 and 32 pick different instances) and
+    at M 72 (two row tiles, the second ragged); the row of the kernels line
+    is M = 32, M = 8 and 72 are logged, each projection's time too."""
     from kalle_tpu_torch.ops.kernels.qmm import qmm, qmm_plain
 
     L, H = 16, 2048
     shapes = {"wq": (H, 2048), "wk": (H, 512), "wv": (H, 512), "wo": (2048, H)}
     ws = {k: _int8_layers(g, L, *s) for k, s in shapes.items()}
     deq = {k: (q.float() * s[:, None]).to(torch.bfloat16) for k, (q, s) in ws.items()}
+    xs = _x_rows(g, H)
+    xs[72] = torch.randn(72, H, generator=g, device="cuda").to(torch.bfloat16)
     rows = {}
-    for M, x in sorted(_x_rows(g, H).items()):
+    for M, x in sorted(xs.items()):
         err = 0.0
         for name, (q, s) in ws.items():
             got, ref = qmm(x, q[5], s[5]), qmm_plain(x, q[5], s[5])
@@ -368,6 +375,13 @@ def check_qmm(g):
         kern = cuda_ms(layer_of(lambda n, i: qmm(x, ws[n][0][i], ws[n][1][i])), 64)
         plain = cuda_ms(layer_of(lambda n, i: qmm_plain(x, ws[n][0][i], ws[n][1][i])), 16)
         lib = cuda_ms(layer_of(lambda n, i: torch.matmul(x, deq[n][i])), 64)
+        each = {}
+        for name in ("wq", "wk", "wo"):  # wv is wk's shape
+            each[name] = (
+                cuda_ms(each_layer(lambda i: qmm(x, ws[name][0][i], ws[name][1][i]), L), 64),
+                cuda_ms(each_layer(lambda i: torch.matmul(x, deq[name][i]), L), 64))
+        log(f"  qmm M={M} per projection, kernel_ms / matmul_ms: " + " ".join(
+            f"{n} {k:.4f} / {m:.4f}" for n, (k, m) in each.items()))
         nbytes = sum(k * n + n * 4 + M * k * 2 + M * n * 2 for k, n in shapes.values())
         flops = sum(2 * M * k * n for k, n in shapes.values())
         rows[M] = dict(name="qmm", source="kalle_tpu_torch/csrc/qmm.cu",
@@ -375,6 +389,7 @@ def check_qmm(g):
                        ms=kern, plain_ms=plain, library_ms=lib, work=(nbytes, flops),
                        note=f"one layer's wq+wk+wv+wo, M={M}, int8 (tolerance 1e-2 relative)")
     log_row(rows[8])
+    log_row(rows[72])
     return rows[BATCH]
 
 
@@ -525,7 +540,115 @@ def check_flash(g):
                          plain_ms=cuda_ms(plain, 3), library_ms=lib,
                          work=(nbytes, pairs * products * 2 * hd)))
     rows[0]["note"] = "SDPA forward as library_ms"
+    check_flash_hd128(g)
     return rows
+
+
+def check_flash_hd128(g):
+    """K5's bf16 tensor-core instance at hd 128 (the training shape reaches
+    only hd 64): b 4, t 512, 16/4 heads, ragged right padding, a left-padded
+    row and a row with no valid key; O 2e-2, LSE 1e-3 abs + 1e-4 rel, the
+    dead rows identical. Logged with its plain and SDPA times."""
+    from kalle_tpu_torch.ops.kernels import flash_attention as fa
+
+    b, t, nq, nkv, hd = 4, TRAIN_T, 16, 4, 128
+    dev, bf = "cuda", torch.bfloat16
+    q = torch.randn(b, t, nq, hd, generator=g, device=dev).to(bf)
+    k, v = (torch.randn(b, t, nkv, hd, generator=g, device=dev).to(bf) for _ in range(2))
+    lens = torch.randint(t // 2, t + 1, (b,), generator=g, device=dev)
+    pad = (torch.arange(t, device=dev)[None] < lens[:, None]).to(torch.int32)
+    pad[1, :77] = 0
+    pad[2] = 0
+    o, lse = fa.flash_fwd(q, k, v, pad)
+    o_ref, lse_ref = fa.flash_attention_fwd_plain(q, k, v, pad)
+    _assert_close("flash_fwd hd 128 O", o, o_ref, 2e-2, 2e-2)
+    dead = lse_ref <= fa.NEG / 2
+    if not (torch.equal(lse <= fa.NEG / 2, dead) and torch.equal(lse[dead], lse_ref[dead])
+            and torch.all(o[2] == 0) and torch.all(o[1, :77] == 0)):
+        raise AssertionError("flash_fwd hd 128: the rows with no valid key differ")
+    _assert_close("flash_fwd hd 128 LSE", lse[~dead], lse_ref[~dead], 1e-3, 1e-4)
+    pos = torch.arange(t, device=dev)
+    am = (pos[None, :] <= pos[:, None])[None, None] & pad.bool()[:, None, None, :]
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    k_ms = cuda_ms(lambda: fa.flash_fwd(q, k, v, pad), 10)
+    p_ms = cuda_ms(lambda: fa.flash_attention_fwd_plain(q, k, v, pad), 3)
+    l_ms = cuda_ms(lambda: sdpa(qt, kt, vt, attn_mask=am, enable_gqa=True), 10)
+    pairs = float(pad.cumsum(-1).sum()) * nq
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * b * t + 4 * b * nq * t
+    b_ms, b_by = bound(nbytes, pairs * 4 * hd)
+    log(f"  flash_fwd hd 128 (b {b}, t {t}, {nq}/{nkv} heads): kernel_ms {k_ms:.4f} "
+        f"plain_ms {p_ms:.4f} sdpa_ms {l_ms:.4f} bound_ms {b_ms:.4f} ({b_by}) O max_abs_err "
+        f"{_max_err(o, o_ref):.4g} LSE max_abs_err {_max_err(lse[~dead], lse_ref[~dead]):.4g}")
+
+
+def check_c3(g):
+    """The inputs that raised on the card before C3 was repaired, once each:
+    K1 at 16 query heads a KV head and hd 256 (B 2, nq 32, nkv 2, C 128) in
+    its base, int8-cache and sideband modes, bf16 and f32; K2/K3 with f32
+    activations and int8 weights (1e-4); and greedy `generate` of the tiny
+    f32 config with int8 layer weights on the card against the CPU (1e-4)."""
+    from kalle_tpu_torch.bridge import tree_map
+    from kalle_tpu_torch.core.config import LlasaConfig
+    from kalle_tpu_torch.infer.generate import generate
+    from kalle_tpu_torch.models.lm import llasa
+    from kalle_tpu_torch.ops.kernels.decode_attention import (
+        decode_attention_cached, decode_attention_plain)
+    from kalle_tpu_torch.ops.kernels.qmm import (fused_mlp, fused_mlp_plain, qmm,
+                                                 qmm_plain)
+    from kalle_tpu_torch.ops.quant import quantize_llama_params
+
+    L, B, nq, nkv, hd, C = 2, 2, 32, 2, 256, 128
+    errs = {}
+    for dt, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+        q = torch.randn(B, nq, hd, generator=g, device="cuda").to(dt)
+        kt = torch.randn(L, B, nkv, hd, C, generator=g, device="cuda").to(dt)
+        v = torch.randn(L, B, nkv, C, hd, generator=g, device="cuda").to(dt)
+        mask = torch.rand(B, C, generator=g, device="cuda") > 0.3
+        mask[:, 0] = True
+        ks = kt.float().abs().amax(3, keepdim=True) / 127
+        vs = v.float().abs().amax(4, keepdim=True) / 127
+        kn, vn = (torch.randn(B, nkv, hd, generator=g, device="cuda").to(dt) for _ in range(2))
+        modes = {"base": (kt, v, {}),
+                 "int8": (torch.round(kt.float() / ks).to(torch.int8),
+                          torch.round(v.float() / vs).to(torch.int8),
+                          dict(k_scale=ks, v_scale=vs.transpose(-1, -2).contiguous())),
+                 "sideband": (kt, v, dict(k_new=kn, v_new=vn, new_valid=torch.tensor(
+                     [True, False], device="cuda")))}
+        for mode, (kk, vv, kw) in modes.items():
+            got = decode_attention_cached(q, kk, vv, 1, mask, **kw)
+            ref = decode_attention_plain(q, kk, vv, 1, mask, **kw)
+            _assert_close(f"decode_attention group 16 hd 256 {mode} {dt}", got, ref, tol, tol)
+            errs[f"K1 {mode} {str(dt)[6:]}"] = _max_err(got, ref)
+    x = torch.randn(9, 256, generator=g, device="cuda")
+    w = torch.randn(256, 512, generator=g, device="cuda") * 0.05
+    s = w.abs().amax(0) / 127
+    wq = torch.round(w / s).to(torch.int8)
+    _assert_close("qmm f32 x", qmm(x, wq, s), qmm_plain(x, wq, s), 1e-4, 1e-4)
+    errs["K2 f32"] = _max_err(qmm(x, wq, s), qmm_plain(x, wq, s))
+    mlp = [{"q": wq, "scale": s}, {"q": wq.flip(0).contiguous(), "scale": s},
+           {"q": wq.t().contiguous(), "scale": s[:256].contiguous()}]
+    got, ref = fused_mlp(x, *mlp), fused_mlp_plain(x, *mlp)
+    _assert_close("fused_mlp f32 x", got, ref, 1e-4, 1e-4)
+    errs["K3 f32"] = _max_err(got, ref)
+
+    cfg = LlasaConfig.tiny()
+    params = quantize_llama_params(llasa.init_params(cfg, torch.Generator().manual_seed(0),
+                                                     "cpu"))
+    ids = torch.randint(0, 300, (3, 9), generator=torch.Generator().manual_seed(1))
+    mask = torch.ones_like(ids)
+    mask[1, :4] = 0
+    out = {}
+    for dev in ("cpu", "cuda"):
+        out[dev] = generate(tree_map(lambda t: t.to(dev), params), cfg, ids.to(dev),
+                            mask.to(dev), max_frames=8, greedy=True)
+    if not torch.equal(out["cpu"].n_frames, out["cuda"].n_frames.cpu()):
+        raise AssertionError("tiny f32 int8 generate: n_frames differ between card and CPU")
+    _assert_close("tiny f32 int8 generate", out["cuda"].means.cpu(), out["cpu"].means,
+                  1e-4, 1e-4)
+    errs["tiny f32 int8 generate"] = _max_err(out["cuda"].means.cpu(), out["cpu"].means)
+    log("  C3 shapes on the card, max_abs_err: " + " ".join(
+        f"{k} {v:.3g};" for k, v in errs.items()))
 
 
 def phase_kernels():
@@ -537,6 +660,7 @@ def phase_kernels():
         r = check(g)
         rows.extend(r if isinstance(r, list) else [r])
         torch.cuda.empty_cache()
+    check_c3(g)
     for r in rows:
         log_row(r)
     return rows

@@ -11,22 +11,42 @@
 // p = exp(s - LSE); delta = rowsum(dO * O) comes in from the wrapper (a
 // plain tensor op, as on the TPU).
 //
-// Bound on the H100: operations. At the flagship training shape (b 8,
-// t 512, 32 query heads, hd 64) the forward does about 8.6 GFLOP of
-// products against 20 MB of inputs and outputs — far above the ~295
-// flop/byte where memory stops being the limit.
+// Bound on the H100: bytes and operations about evenly. At the flagship
+// training shape (b 8, t 512, 32 query heads, hd 64, ragged padding) the
+// forward reads and writes about 43 MB (12.7 us at 3.35 TB/s) and does
+// about 7 GFLOP of products on the causal, unpadded pairs (about 7 us at
+// the bf16 tensor-core peak), so a kernel near its bound keeps both the
+// memory and the tensor cores busy (chip_smoke.py computes both).
 //
-// Design (a first, simple version: scalar f32 FMAs, no tensor cores; the
-// products could move to WMMA/wgmma later). Tensors stay in the model's
+// K5, bf16 (the training path): tensor cores. A block owns 64 query rows
+// of one (batch, query head), 16 rows a warp (4 warps); the grid walks the
+// heaviest query tiles (nearest the end of the sequence) first. Q's tile
+// is copied to shared memory once and held in registers as mma.sync A
+// fragments. K and V tiles of 64 keys move as bf16 into a ring of two
+// shared-memory stages by cp.async, the next tile in flight while this one
+// is multiplied, with the tile's key-padding flags beside them. S = Q.K^T
+// is mma.sync m16n8k16 (bf16 in, f32 accumulators; K's rows are the B
+// operand as they lie), then times hd^-0.5 in f32. The online softmax
+// stays in registers: each lane holds two rows' m, its share of l (summed
+// over the row's four lanes at the end, from the unrounded f32 p) and
+// its columns of O. P.V is mma.sync with P rounded to bf16 straight from
+// the S accumulators (the C layout of two 8-key tiles is the A layout of
+// one 16-key step) and V by ldmatrix.trans. Key tiles above the diagonal
+// are never loaded; the causal test runs only on the diagonal tile, the
+// padding test on every tile. O leaves through shared memory in 16-byte
+// stores, LSE from one lane a row.
+//
+// The f32 instance and K6/K7 are a first, simple version: scalar f32
+// FMAs, no tensor cores. Tensors stay in the model's
 // (b, t, heads, hd) layout — no folding copies; LSE and delta are (b, nq, t)
 // f32. A row of hd elements is split over TPR = hd/32 threads (1 for hd <=
 // 32), each holding E <= 32 elements in registers; a dot product is a
 // register FMA chain plus a shuffle across the row's threads.
-//   K5: one block per (b*nq, 64-query tile), one thread group per query row.
-//       K/V tiles of 64 keys are staged in shared memory (16-byte loads,
-//       converted to f32) up to the block's last query; each row keeps the
-//       online-softmax m, l and acc in f32 over chunks of 16 keys and stops
-//       at its own diagonal.
+//   K5 f32: one block per (b*nq, 64-query tile), one thread group per
+//       query row. K/V tiles of 64 keys are staged in shared memory
+//       (16-byte loads, converted to f32) up to the block's last query;
+//       each row keeps the online-softmax m, l and acc in f32 over chunks
+//       of 16 keys and stops at its own diagonal.
 //   K6: the same grid; each row recomputes p from LSE, forms
 //       ds = p (dO.v - delta) and accumulates ds.k in f32, one key at a
 //       time (no per-chunk arrays: unrolled chunks spilled registers).
@@ -226,6 +246,201 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   if (part == 0) lse[(size_t)bh * t + qi] = l > 0.f ? m + logf(den) : NEG;
 }
 
+// ------------------------------------------------------ K5, bf16 (mma) ---
+
+namespace tc {
+
+constexpr int WARPS = 4;       // 16 query rows each
+constexpr int THREADS = WARPS * 32;
+
+template <int HD>
+struct Tile {
+  static constexpr int LD = HD + 8;            // row stride, bf16 (ldmatrix rows conflict-free)
+  static constexpr int ROWS = QT * LD;         // elements of one 64-row tile
+  // Q, then two stages of (K, V), then two stages of 64 padding flags
+  static constexpr size_t SMEM = (size_t)5 * ROWS * 2 + 2 * KT * 4;
+};
+
+// Rows [r0, r0 + 64) of one head (row stride `stride` elements) -> dst
+// (64, LD) by cp.async; rows at or past t are zero-filled.
+template <int HD>
+__device__ __forceinline__ void load_tile(bf16* dst, const bf16* __restrict__ src,
+                                          size_t stride, int r0, int t) {
+  constexpr int PER = HD / 8;  // 16-byte copies a row
+  for (int i = threadIdx.x; i < QT * PER; i += THREADS) {
+    const int r = i / PER, c = (i % PER) * 8;
+    const bool live = r0 + r < t;
+    cp_async16(dst + r * Tile<HD>::LD + c, live ? src + (size_t)(r0 + r) * stride + c : src,
+               live ? 16 : 0);
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(THREADS)
+flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+              const bf16* __restrict__ v, const int* __restrict__ pad, bf16* __restrict__ o,
+              float* __restrict__ lse, int t, int nq, int nkv, float scale) {
+  using TL = Tile<HD>;
+  constexpr int LD = TL::LD, KS = HD / 16, NT = HD / 8;
+  extern __shared__ float4 smem4[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem4);
+  bf16* KVs = Qs + TL::ROWS;  // stage s: K at 2s, V at 2s + 1
+  int* Fs = reinterpret_cast<int*>(KVs + 4 * TL::ROWS);  // (2, KT) padding flags
+
+  const int bh = blockIdx.x, bi = bh / nq, h = bh % nq, kh = h / (nq / nkv);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * QT;  // heaviest tiles first
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const size_t qs = (size_t)nq * HD, ks = (size_t)nkv * HD;
+  const bf16* kb = k + (size_t)bi * t * ks + kh * HD;
+  const bf16* vb = v + (size_t)bi * t * ks + kh * HD;
+  const int* pb = pad + (size_t)bi * t;
+  const int ntiles = (min(q0 + QT, t) - 1) / KT + 1;  // key tiles up to the diagonal
+
+  auto load_kv = [&](int tile) {
+    const int st = tile & 1, k0 = tile * KT;
+    load_tile<HD>(KVs + (2 * st) * TL::ROWS, kb, ks, k0, t);
+    load_tile<HD>(KVs + (2 * st + 1) * TL::ROWS, vb, ks, k0, t);
+    for (int r = threadIdx.x; r < KT; r += THREADS)
+      Fs[st * KT + r] = k0 + r < t && pb[k0 + r] != 0;
+  };
+
+  load_tile<HD>(Qs, q + (size_t)bi * t * qs + h * HD, qs, q0, t);
+  load_kv(0);
+  cp_async_commit();
+
+  uint32_t qf[KS][4];   // Q's A fragments, rows warp*16 .. +16
+  float oacc[NT][4];    // O: rows (lane/4, +8), columns 8 nt + 2 (lane%4) + {0,1}
+#pragma unroll
+  for (int i = 0; i < NT; ++i) oacc[i][0] = oacc[i][1] = oacc[i][2] = oacc[i][3] = 0.f;
+  float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};  // l: this lane's share of the row sum
+  const int qi0 = q0 + warp * 16 + (lane >> 2);  // this lane's rows: qi0, qi0 + 8
+
+  for (int tile = 0; tile < ntiles; ++tile) {
+    if (tile + 1 < ntiles) load_kv(tile + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile (and Q) landed
+    __syncthreads();
+    if (tile == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+        ldsm_x4(qf[kk], Qs + (warp * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
+    }
+    const int st = tile & 1, k0 = tile * KT;
+    const bf16* Ks = KVs + (2 * st) * TL::ROWS;
+    const bf16* Vs = KVs + (2 * st + 1) * TL::ROWS;
+    const int* fl = Fs + st * KT;
+
+    // S = Q . K^T: 8 tiles of 8 keys, two at a time from one ldmatrix.x4
+    float sacc[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) sacc[j][0] = sacc[j][1] = sacc[j][2] = sacc[j][3] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; j += 2) {
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        uint32_t b[4];
+        ldsm_x4(b, Ks + (j * 8 + (lane & 7) + (lane >> 4) * 8) * LD + kk * 16 +
+                       ((lane >> 3) & 1) * 8);
+        const uint32_t b0[2] = {b[0], b[1]}, b1[2] = {b[2], b[3]};
+        mma_bf16(sacc[j], qf[kk], b0);
+        mma_bf16(sacc[j + 1], qf[kk], b1);
+      }
+    }
+
+    // mask, scale and the online softmax, two rows a lane
+    const bool diag = k0 + KT > q0;  // the tile that holds the diagonal
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = j * 8 + 2 * (lane & 3) + (e & 1), row = qi0 + (e >> 1) * 8;
+        const bool ok = fl[c] && (!diag || k0 + c <= row);
+        sacc[j][e] = ok ? sacc[j][e] * scale : NEG;
+        mx[e >> 1] = fmaxf(mx[e >> 1], sacc[j][e]);
+      }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      alpha[r] = __expf(m[r] - mx[r]);
+      m[r] = mx[r];
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float s_ = sacc[j][e];
+        // masked scores are NEG; their p is exactly 0
+        const float p = s_ == NEG ? 0.f : __expf(s_ - m[e >> 1]);
+        sacc[j][e] = p;
+        l[e >> 1] += p;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < NT; ++i) {
+      oacc[i][0] *= alpha[0];
+      oacc[i][1] *= alpha[0];
+      oacc[i][2] *= alpha[1];
+      oacc[i][3] *= alpha[1];
+    }
+
+    // O += P . V: P (bf16) from the S accumulators, 16 keys a step
+#pragma unroll
+    for (int kk = 0; kk < KT / 16; ++kk) {
+      const uint32_t a[4] = {pack_bf16(sacc[2 * kk][0], sacc[2 * kk][1]),
+                             pack_bf16(sacc[2 * kk][2], sacc[2 * kk][3]),
+                             pack_bf16(sacc[2 * kk + 1][0], sacc[2 * kk + 1][1]),
+                             pack_bf16(sacc[2 * kk + 1][2], sacc[2 * kk + 1][3])};
+#pragma unroll
+      for (int i = 0; i < NT; i += 2) {
+        uint32_t b[4];
+        ldsm_x4_t(b, Vs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + i * 8 +
+                         (lane >> 4) * 8);
+        const uint32_t b0[2] = {b[0], b[1]}, b1[2] = {b[2], b[3]};
+        mma_bf16(oacc[i], a, b0);
+        mma_bf16(oacc[i + 1], a, b1);
+      }
+    }
+    __syncthreads();  // the stage is free for tile + 2
+  }
+
+  // the row sums over the row's four lanes; O and LSE
+  float den[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    den[r] = fmaxf(l[r], 1e-30f);
+    const int row = qi0 + r * 8;
+    if ((lane & 3) == 0 && row < t)
+      lse[(size_t)bh * t + row] = l[r] > 0.f ? m[r] + logf(den[r]) : NEG;
+  }
+  bf16* Os = Qs;  // Q's tile is in registers: its shared memory takes O
+#pragma unroll
+  for (int i = 0; i < NT; ++i) {
+    const int c = i * 8 + 2 * (lane & 3), r = warp * 16 + (lane >> 2);
+    *reinterpret_cast<uint32_t*>(Os + r * LD + c) =
+        pack_bf16(oacc[i][0] / den[0], oacc[i][1] / den[0]);
+    *reinterpret_cast<uint32_t*>(Os + (r + 8) * LD + c) =
+        pack_bf16(oacc[i][2] / den[1], oacc[i][3] / den[1]);
+  }
+  __syncthreads();
+  bf16* ob = o + (size_t)bi * t * qs + h * HD;
+  constexpr int PER = HD / 8;
+  for (int i = threadIdx.x; i < QT * PER; i += THREADS) {
+    const int r = i / PER, c = (i % PER) * 8;
+    if (q0 + r < t)
+      *reinterpret_cast<uint4*>(ob + (size_t)(q0 + r) * qs + c) =
+          *reinterpret_cast<const uint4*>(Os + r * LD + c);
+  }
+}
+
+}  // namespace tc
+
 // ---------------------------------------------------------------- K6 -----
 
 template <typename T, int HD>
@@ -372,9 +587,17 @@ cudaError_t run(int which, const Args& a) {
   const int* pad = (const int*)a.pad;
   cudaError_t e;
   if (which == 0) {
-    if ((e = allow_smem(flash_fwd<T, HD>, smem)) != cudaSuccess) return e;
-    flash_fwd<T, HD><<<dim3((a.t + QT - 1) / QT, a.b * a.nq), QT * TPR, smem, a.s>>>(
-        q, k, v, pad, (T*)a.o, (float*)a.lse_out, a.t, a.nq, a.nkv, scale);
+    if constexpr (std::is_same<T, bf16>::value) {  // tensor cores
+      constexpr size_t tc_smem = tc::Tile<HD>::SMEM;
+      if ((e = allow_smem(tc::flash_fwd_mma<HD>, tc_smem)) != cudaSuccess) return e;
+      tc::flash_fwd_mma<HD><<<dim3(a.b * a.nq, (a.t + QT - 1) / QT), tc::THREADS, tc_smem,
+                              a.s>>>(q, k, v, pad, (T*)a.o, (float*)a.lse_out, a.t, a.nq,
+                                     a.nkv, scale);
+    } else {
+      if ((e = allow_smem(flash_fwd<T, HD>, smem)) != cudaSuccess) return e;
+      flash_fwd<T, HD><<<dim3((a.t + QT - 1) / QT, a.b * a.nq), QT * TPR, smem, a.s>>>(
+          q, k, v, pad, (T*)a.o, (float*)a.lse_out, a.t, a.nq, a.nkv, scale);
+    }
   } else if (which == 1) {
     if ((e = allow_smem(flash_dq<T, HD>, smem)) != cudaSuccess) return e;
     flash_dq<T, HD><<<dim3((a.t + QT - 1) / QT, a.b * a.nq), QT * TPR, smem, a.s>>>(

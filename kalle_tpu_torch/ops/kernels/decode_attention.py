@@ -82,7 +82,7 @@ def decode_attention_cached(q: torch.Tensor, k_full: torch.Tensor,
     quant = k_full.dtype == torch.int8
     if not (q.dtype in (torch.bfloat16, torch.float32)
             and k_full.dtype == v_full.dtype and k_full.dtype in (q.dtype, torch.int8)
-            and bk == b and hdk == hd and nq % nkv == 0 and nq // nkv <= 8 and hd <= 128
+            and bk == b and hdk == hd and nq % nkv == 0 and hd <= 256
             and v_full.shape == (L, b, nkv, c, hd)
             and mask.dtype == torch.bool and mask.shape == (b, c) and 0 <= li < L
             and len(scales) == (2 if quant else 0)
@@ -95,8 +95,9 @@ def decode_attention_cached(q: torch.Tensor, k_full: torch.Tensor,
         raise ValueError(
             "decode_attention_cached takes contiguous q (B, nq, hd) bf16/f32, "
             "k (L, B, nkv, hd, C) and v (L, B, nkv, C, hd) of q's dtype or int8 "
-            "with f32 (L, B, nkv, 1, C) scales, a bool (B, C) mask, nq/nkv <= 8, "
-            "hd <= 128, 0 <= li < L, and for the sideband k_new, v_new (B, nkv, hd) "
+            "with f32 (L, B, nkv, 1, C) scales, a bool (B, C) mask, nq % nkv == 0 "
+            "(any group width), hd <= 256, 0 <= li < L, and for the sideband k_new, "
+            "v_new (B, nkv, hd) "
             f"of the cache's dtype and a bool (B,) new_valid; got li={li}, "
             + _build.describe(*tensors))
 

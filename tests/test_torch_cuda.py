@@ -1,12 +1,14 @@
 """The port's CUDA kernels against their plain versions on the card, at
 small and ragged shapes the main path does not reach (C not a multiple of
 128, T not a multiple of the time tile, M not a multiple of 16 and above
-64, f32 and int8 caches, K1's sideband, dense bf16 weights, ConvNeXt
-widths outside the decoder's and mlp_ratio 3; flash attention at t 128 and
-384 with fully masked rows, f32 and bf16), one flash train_step against the
+64, f32 and int8 caches, K1's sideband, K1 at 16 heads a group and hd 256,
+dense bf16 weights, K2 split over K at M 1..130, K2/K3 with f32
+activations, ConvNeXt widths outside the decoder's and mlp_ratio 3; flash
+attention at t 128 to 512 with fully masked rows, f32 and bf16, K5's
+tensor-core instance at every head dim), one flash train_step against the
 plain path, and whole paths on the card against the CPU: `generate` on the
-tiny f32 config and at batch 72, the tiny codec in bf16, and the
-continuous batcher. Needs an NVIDIA GPU and nvcc; skipped elsewhere. On
+tiny f32 config (dense and int8 weights) and at batch 72, the tiny codec
+in bf16, and the continuous batcher. Needs an NVIDIA GPU and nvcc; skipped elsewhere. On
 the card (this file imports no JAX, so no conftest):
 
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_cuda.py
@@ -118,6 +120,95 @@ def test_fused_mlp(g, m, h, f, int8):
     assert float((got.float() - ref.float()).abs().max() / ref.float().abs().max()) < 1e-2
 
 
+@pytest.mark.parametrize("m", [1, 8, 17, 32, 72, 130])
+@pytest.mark.parametrize("int8", [True, False])
+def test_qmm_split_k_rows(g, m, int8):
+    """K2's tensor-core kernel where it splits K over a cluster (K 2048,
+    N 512: wk/wv's shape) at the serving batches and ragged ones, rows past
+    M masked in the kernel: 1e-2 relative, one launch a call."""
+    k, n = 2048, 512
+    w = torch.randn(k, n, generator=g, device="cuda") * 0.02
+    scale = None
+    if int8:
+        scale = w.abs().amax(0) / 127
+        w = torch.round(w / scale).to(torch.int8)
+    else:
+        w = w.to(BF)
+    x = torch.randn(m, k, generator=g, device="cuda").to(BF)
+    before = _build.launches().get(k23.NAME_QMM, 0)
+    got, ref = k23.qmm(x, w, scale), k23.qmm_plain(x, w, scale)
+    assert _build.launches().get(k23.NAME_QMM, 0) == before + 1
+    assert got.shape == (m, n) and got.dtype == BF
+    assert float((got.float() - ref.float()).abs().max() / ref.float().abs().max()) < 1e-2
+    assert torch.equal(k23.qmm(x, w, scale), got)  # no atomics: the same bits again
+
+
+@pytest.mark.parametrize("m,k,n,int8", [(3, 64, 32, True), (9, 256, 96, False),
+                                        (70, 128, 64, True)])
+def test_qmm_f32_activations(g, m, k, n, int8):
+    """K2's f32 mode (C3): f32 x with int8 or f32 weights, full f32 products."""
+    w = torch.randn(k, n, generator=g, device="cuda") * 0.05
+    scale = None
+    if int8:
+        scale = w.abs().amax(0) / 127
+        w = torch.round(w / scale).to(torch.int8)
+    x = torch.randn(m, k, generator=g, device="cuda")
+    before = _build.launches().get(k23.NAME_QMM, 0)
+    got = k23.qmm(x, w, scale)
+    assert _build.launches().get(k23.NAME_QMM, 0) == before + 1
+    _close(got, k23.qmm_plain(x, w, scale), 1e-4)
+
+
+@pytest.mark.parametrize("m,h,f,int8", [(3, 64, 128, True), (17, 128, 192, False)])
+def test_fused_mlp_f32_activations(g, m, h, f, int8):
+    """K3's f32 mode (C3): h stays f32 (x's dtype), as in fused_mlp_plain."""
+    def weight(*shape):
+        w = torch.randn(*shape, generator=g, device="cuda") * 0.05
+        if not int8:
+            return w
+        s = w.abs().amax(0) / 127
+        return {"q": torch.round(w / s).to(torch.int8), "scale": s}
+
+    ws = weight(h, f), weight(h, f), weight(f, h)
+    x = torch.randn(m, h, generator=g, device="cuda")
+    before = _build.launches().get(k23.NAME_MLP, 0)
+    got = k23.fused_mlp(x, *ws)
+    assert _build.launches().get(k23.NAME_MLP, 0) == before + 1
+    _close(got, k23.fused_mlp_plain(x, *ws), 1e-4)
+
+
+@pytest.mark.parametrize("dtype,mode", [(BF, "base"), (torch.float32, "base"),
+                                        (BF, "int8"), (torch.float32, "int8"),
+                                        (BF, "sideband"), (torch.float32, "sideband")])
+def test_decode_attention_wide_group_hd256(g, dtype, mode):
+    """K1 at C3's shape: 16 query heads a KV head (two chunks of 8 in the
+    grid) and hd 256 (tiles of 64 columns), B 2, nq 32, nkv 2, C 128, in
+    each mode, against the plain version."""
+    L, b, nq, nkv, hd, c = 2, 2, 32, 2, 256, 128
+    q = torch.randn(b, nq, hd, generator=g, device="cuda").to(dtype)
+    kt = torch.randn(L, b, nkv, hd, c, generator=g, device="cuda").to(dtype)
+    v = torch.randn(L, b, nkv, c, hd, generator=g, device="cuda").to(dtype)
+    mask = torch.rand(b, c, generator=g, device="cuda") > 0.3
+    mask[:, 0] = True
+    kw = {}
+    if mode == "int8":
+        ks = kt.float().abs().amax(3, keepdim=True) / 127
+        vs = v.float().abs().amax(4, keepdim=True) / 127
+        kt = torch.round(kt.float() / ks).to(torch.int8)
+        v = torch.round(v.float() / vs).to(torch.int8)
+        kw = dict(k_scale=ks, v_scale=vs.transpose(-1, -2).contiguous())
+    elif mode == "sideband":
+        kn, vn = (torch.randn(b, nkv, hd, generator=g, device="cuda").to(dtype)
+                  for _ in range(2))
+        kw = dict(k_new=kn, v_new=vn, new_valid=torch.tensor([True, False], device="cuda"))
+    name = k1.NAME_SIDEBAND if mode == "sideband" else k1.NAME
+    before = _build.launches().get(name, 0)
+    got = k1.decode_attention_cached(q, kt, v, 1, mask, **kw)
+    assert _build.launches().get(name, 0) == before + 1
+    _close(got, k1.decode_attention_plain(q, kt, v, 1, mask, **kw),
+           2e-2 if dtype == BF else 1e-4)
+
+
 @pytest.mark.parametrize("c,t,ratio", [(16, 45, 2), (64, 100, 2), (128, 33, 2), (512, 70, 2),
                                        (4, 33, 2), (8, 20, 2), (48, 50, 2), (64, 40, 3)])
 def test_convnext_block(g, c, t, ratio):
@@ -138,8 +229,6 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(g):
     x = torch.randn(4, 100, device="cuda").to(BF)
     with pytest.raises(ValueError):  # K % 64 != 0
         k23.qmm(x, torch.zeros(100, 64, dtype=torch.int8, device="cuda"))
-    with pytest.raises(ValueError):  # f32 activations
-        k23.qmm(x.float()[:, :64], torch.zeros(64, 64, dtype=torch.int8, device="cuda"))
     q = torch.zeros(1, 128, 4, 48, dtype=BF, device="cuda")
     pad = torch.ones(1, 128, dtype=torch.int32, device="cuda")
     with pytest.raises(ValueError):  # hd=48 has no kernel
@@ -163,6 +252,11 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(g):
                           torch.zeros(1, 48, 96, dtype=BF, device="cuda"),
                           torch.zeros(96, dtype=BF, device="cuda"),
                           torch.zeros(1, 96, 48, dtype=BF, device="cuda"), z)
+    with pytest.raises(ValueError, match="hd <= 256"):  # hd 320: no instance
+        k1.decode_attention_cached(torch.zeros(2, 4, 320, dtype=BF, device="cuda"),
+                                   torch.zeros(1, 2, 2, 320, 128, dtype=BF, device="cuda"),
+                                   torch.zeros(1, 2, 2, 128, 320, dtype=BF, device="cuda"),
+                                   0, torch.ones(2, 128, dtype=torch.bool, device="cuda"))
     kn = torch.zeros(4, 2, 64, dtype=BF, device="cuda")
     with pytest.raises(ValueError):  # no sideband with an int8 cache
         s = torch.ones(1, 4, 2, 1, 128, device="cuda")
@@ -196,6 +290,30 @@ def test_flash_attention(g, dtype, b, t, nq, nkv, hd):
     for got, ref in zip(k567.flash_bwd_dkv(q, k, v, pad, do, lse_ref, delta),
                         k567.flash_bwd_dkv_plain(q, k, v, pad, do, lse_ref, delta)):
         _close(got, ref, tol)
+
+
+@pytest.mark.parametrize("t", [128, 512])
+@pytest.mark.parametrize("hd", k567.HEAD_DIMS)
+def test_flash_fwd_bf16_tensor_cores(g, hd, t):
+    """K5's bf16 instance (mma.sync) at every head dim: ragged right
+    padding, a left-padded row, a row with no valid key. O 2e-2, LSE 1e-3
+    abs / 1e-4 rel, the dead rows identical (LSE -1e30, O 0)."""
+    b, nq, nkv = 4, 4, 2
+    q = torch.randn(b, t, nq, hd, generator=g, device="cuda").to(BF)
+    k, v = (torch.randn(b, t, nkv, hd, generator=g, device="cuda").to(BF) for _ in range(2))
+    pad = torch.ones(b, t, dtype=torch.int32, device="cuda")
+    pad[0, t - 37:] = 0
+    pad[1, :70] = 0  # queries 0..69 see no valid key
+    pad[2] = 0       # no valid key at all
+    before = _build.launches().get(k567.NAME_FWD, 0)
+    o, lse = k567.flash_fwd(q, k, v, pad)
+    assert _build.launches().get(k567.NAME_FWD, 0) == before + 1
+    o_ref, lse_ref = k567.flash_attention_fwd_plain(q, k, v, pad)
+    _close(o, o_ref, 2e-2)
+    dead = lse_ref <= k567.NEG / 2
+    assert torch.equal(lse <= k567.NEG / 2, dead) and torch.equal(lse[dead], lse_ref[dead])
+    assert torch.all(o[2] == 0) and torch.all(o[1, :70] == 0)
+    torch.testing.assert_close(lse[~dead], lse_ref[~dead], atol=1e-3, rtol=1e-4)
 
 
 @pytest.mark.parametrize("remat", ["none", "full", "dots"])
@@ -270,7 +388,7 @@ def _generate_both(cfg, params, ids, mask, max_frames):
 
 def test_generate_tiny_f32_on_card(g):
     """LlamaConfig.tiny() in f32 with dense weights: the decode matmuls take
-    maybe_matmul (no kernel takes f32 activations), attention K1 in f32;
+    maybe_matmul (dense weights never go to K2/K3), attention K1 in f32;
     the card agrees with the CPU to f32 rounding (matmuls in full f32)."""
     from kalle_tpu_torch.core.config import LlasaConfig
     from kalle_tpu_torch.models.lm import llasa
@@ -286,6 +404,29 @@ def test_generate_tiny_f32_on_card(g):
     assert _build.launches().get(k23.NAME_QMM, 0) == before.get(k23.NAME_QMM, 0)
     assert torch.equal(got.n_frames.cpu(), ref.n_frames)
     torch.testing.assert_close(got.means.cpu(), ref.means, atol=1e-4, rtol=1e-3)
+
+
+def test_generate_tiny_f32_int8_on_card(g):
+    """quantize_llama_params(LlamaConfig.tiny()) in f32 (C3): int8 weights
+    with f32 activations go to K2/K3's f32 mode on the card, attention to
+    K1 in f32; the card agrees with the CPU's plain versions at 1e-4."""
+    from kalle_tpu_torch.core.config import LlasaConfig
+    from kalle_tpu_torch.models.lm import llasa
+    from kalle_tpu_torch.ops.quant import quantize_llama_params
+
+    cfg = LlasaConfig.tiny()
+    params = quantize_llama_params(llasa.init_params(cfg, torch.Generator().manual_seed(0),
+                                                     "cpu"))
+    ids = torch.randint(0, 300, (3, 9), generator=torch.Generator().manual_seed(1))
+    mask = torch.ones_like(ids)
+    mask[1, :4] = 0
+    before = _build.launches()
+    ref, got = _generate_both(cfg, params, ids, mask, 8)
+    after = _build.launches()
+    for name, n in ((k23.NAME_QMM, 4 * 2 * 8), (k23.NAME_MLP, 2 * 8), (k1.NAME, 2 * 8)):
+        assert after.get(name, 0) - before.get(name, 0) == n
+    assert torch.equal(got.n_frames.cpu(), ref.n_frames)
+    torch.testing.assert_close(got.means.cpu(), ref.means, atol=1e-4, rtol=1e-4)
 
 
 def test_generate_batch72_on_card(g):
