@@ -4,8 +4,9 @@
 
 Phases (any failure exits nonzero and prints no result):
   1. build the hand-written kernels from csrc/ (one nvcc per source, all at
-     once) and print the toolchain and the card (nvidia-smi name, power
-     limit);
+     once), print each kernel's registers and spills from ptxas (failing
+     if K6's or K7's bf16 instance spills at hd 64), the toolchain and the
+     card (nvidia-smi name, power limit);
   2. hold every kernel against its plain PyTorch version on the same inputs
      at the shapes the main path gives it, and time kernel, plain version
      and, where one exists, the single PyTorch call that computes the same
@@ -45,7 +46,9 @@ Phases (any failure exits nonzero and prints no result):
 Phase 2 also holds K5-K7 (flash attention forward, dq, dk/dv) against
 their plain versions at the flagship training shape (b 8, t 512, 32/8
 heads, hd 64, bf16; ragged pads, a left-padded row, a row with no valid
-key) and K5 at hd 128 (b 4, 16/4 heads), K1's sideband mode at phase 5's
+key) and at hd 128 (b 4, 16/4 heads), with K6's and K7's dead rows
+exactly 0 and their reruns bit-identical, beside SDPA's forward and its
+backward alone (the yardstick of K6 + K7), K1's sideband mode at phase 5's
 shapes (batch 8 and 32, cache 384, ragged rows, some rows' new column not
 counted), K2 at M 8, 32 and 72 and K3 at both serving batches, M 8 and 32
 (the kernels line keeps M 32), and, once each, the inputs that raised
@@ -66,6 +69,7 @@ import itertools
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -153,6 +157,32 @@ def each_layer(fn, n_layers: int):
 
 # --------------------------------------------------------------- phase 1 ----
 
+def ptxas_report(text: str):
+    """(kernel, registers, stack and spill line) for each entry function in
+    nvcc's -Xptxas -v log, names demangled by c++filt where there is one."""
+    out, name, spill = [], None, ""
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+        elif "spill" in line:
+            spill = line.strip()
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append([name, int(m.group(1)), spill])
+            name, spill = None, ""
+    try:
+        plain = subprocess.run(["c++filt"], input="\n".join(r[0] for r in out),
+                               capture_output=True, text=True, timeout=60,
+                               check=True).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        plain = [r[0] for r in out]
+    for r, p in zip(out, plain):
+        p = p.replace("(anonymous namespace)::", "").removeprefix("void ")
+        r[0] = p.split("(")[0]
+    return out
+
+
 def phase_build():
     from kalle_tpu_torch.ops.kernels import _build
 
@@ -162,9 +192,12 @@ def phase_build():
     log(f"build_s {time.perf_counter() - t0:.2f} per_source "
         + json.dumps({k: round(v, 2) for k, v in per.items()}))
     for lib in sorted(_build.BUILD_DIR.glob("*.log")):
-        for line in lib.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {lib.stem}: {line.strip()}")
+        for name, regs, spill in ptxas_report(lib.read_text()):
+            log(f"  ptxas {lib.stem.split('-')[0]} {name}: {regs} registers, {spill}")
+            # K6's and K7's bf16 instances at the training head dim must not spill
+            if (re.search(r"flash_d(q|kv)_mma(<64>|ILi64E)", name)
+                    and "0 bytes spill stores, 0 bytes spill loads" not in spill):
+                raise AssertionError(f"{name} spills registers: {spill}")
     nv = subprocess.run([_build.nvcc(), "--version"], capture_output=True,
                         text=True, timeout=60).stdout.strip().splitlines()
     try:
@@ -488,33 +521,14 @@ def check_flash(g):
         raise AssertionError("flash_fwd: the rows with no valid key differ")
     _assert_close("flash_fwd LSE", lse[~masked], lse_ref[~masked], 1e-3, 1e-4)
     delta = fa.attention_delta(o_ref, do)
-    dq = fa.flash_bwd_dq(q, k, v, pad, do, lse_ref, delta)
-    dq_ref = fa.flash_bwd_dq_plain(q, k, v, pad, do, lse_ref, delta)
-    _assert_close("flash_bwd_dq", dq, dq_ref, 2e-2, 2e-2)
-    dk, dv = fa.flash_bwd_dkv(q, k, v, pad, do, lse_ref, delta)
-    dk_ref, dv_ref = fa.flash_bwd_dkv_plain(q, k, v, pad, do, lse_ref, delta)
-    _assert_close("flash_bwd_dkv dK", dk, dk_ref, 2e-2, 2e-2)
-    _assert_close("flash_bwd_dkv dV", dv, dv_ref, 2e-2, 2e-2)
-    errs = {"flash_fwd": _max_err(o, o_ref), "flash_bwd_dq": _max_err(dq, dq_ref),
-            "flash_bwd_dkv": max(_max_err(dk, dk_ref), _max_err(dv, dv_ref))}
+    errs = {"flash_fwd": _max_err(o, o_ref),
+            **check_flash_bwd(fa, q, k, v, pad, do, lse_ref, delta, "")}
     log(f"  flash LSE max_abs_err {_max_err(lse[~masked], lse_ref[~masked]):.4g}; "
-        f"dK {_max_err(dk, dk_ref):.4g} dV {_max_err(dv, dv_ref):.4g}")
+        f"dQ {errs['flash_bwd_dq']:.4g} dK/dV {errs['flash_bwd_dkv']:.4g}")
 
-    # the library yardstick: SDPA (GQA, bool mask), forward and forward+backward
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    pos = torch.arange(t, device=dev)
-    am = ((pos[None, :] <= pos[:, None])[None, None] & pad.bool()[:, None, None, :])
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    lib_fwd = cuda_ms(lambda: sdpa(qt, kt, vt, attn_mask=am, enable_gqa=True), 10)
-    qg, kg, vg = (x.detach().clone().requires_grad_() for x in (qt, kt, vt))
-    dot_ = do.transpose(1, 2)
-
-    def sdpa_fwd_bwd():
-        sdpa(qg, kg, vg, attn_mask=am, enable_gqa=True).backward(dot_)
-
-    lib_fb = event_ms(sdpa_fwd_bwd, 10)
-    log(f"  sdpa (enable_gqa, bool mask): forward_ms {lib_fwd:.4f} "
-        f"forward+backward_ms {lib_fb:.4f}")
+    # the library yardstick: SDPA (GQA, bool mask) forward, and its backward
+    # alone (dq, dk, dv from one saved forward: the work of K6 + K7)
+    lib_fwd, lib_bwd = sdpa_times(q, k, v, pad, do)
 
     # work: the (query, key) pairs this pad mask leaves, per query head
     pairs = float(pad.cumsum(-1).sum()) * nq
@@ -534,26 +548,91 @@ def check_flash(g):
              lambda: fa.flash_bwd_dkv(q, k, v, pad, do, lse_ref, delta),
              lambda: fa.flash_bwd_dkv_plain(q, k, v, pad, do, lse_ref, delta),
              4, e_qkv + 4 * b * t + 2 * do.numel() + 2 * e_stats
-             + 2 * (k.numel() + v.numel()), None)):
+             + 2 * (k.numel() + v.numel()), lib_bwd)):
         rows.append(dict(name=name, source="kalle_tpu_torch/csrc/flash_attention.cu",
                          replaces=replaces, max_abs_err=errs[name], ms=cuda_ms(fn, 10),
                          plain_ms=cuda_ms(plain, 3), library_ms=lib,
                          work=(nbytes, pairs * products * 2 * hd)))
     rows[0]["note"] = "SDPA forward as library_ms"
+    rows[2]["note"] = "SDPA backward alone as library_ms: dq, dk and dv, i.e. K6 + K7"
+    log(f"  K6 + K7 {rows[1]['ms'] + rows[2]['ms']:.4f} ms against SDPA's backward alone "
+        f"{lib_bwd:.4f} ms ({(rows[1]['ms'] + rows[2]['ms']) / lib_bwd:.3f}x)")
     check_flash_hd128(g)
     return rows
 
 
+def check_flash_bwd(fa, q, k, v, pad, do, lse, delta, what):
+    """K6 and K7 against their plain versions (2e-2 abs + 2e-2 rel); dQ rows
+    of queries with no valid key and dK/dV rows of padded keys exactly 0; a
+    second launch of each bit-identical to the first. -> the largest
+    errors."""
+    args = (q, k, v, pad, do, lse, delta)
+    dq, dq_ref = fa.flash_bwd_dq(*args), fa.flash_bwd_dq_plain(*args)
+    _assert_close(f"flash_bwd_dq{what}", dq, dq_ref, 2e-2, 2e-2)
+    dk, dv = fa.flash_bwd_dkv(*args)
+    dk_ref, dv_ref = fa.flash_bwd_dkv_plain(*args)
+    _assert_close(f"flash_bwd_dkv dK{what}", dk, dk_ref, 2e-2, 2e-2)
+    _assert_close(f"flash_bwd_dkv dV{what}", dv, dv_ref, 2e-2, 2e-2)
+    dead_q = (lse <= fa.NEG / 2).transpose(1, 2)  # (b, t, nq)
+    dead_k = pad == 0
+    if not (dead_q.any() and dead_k.any() and torch.all(dq[dead_q] == 0)
+            and torch.all(dk[dead_k] == 0) and torch.all(dv[dead_k] == 0)):
+        raise AssertionError(f"flash backward{what}: a dead row is not exactly 0")
+    again = fa.flash_bwd_dkv(*args)
+    if not (torch.equal(fa.flash_bwd_dq(*args), dq) and torch.equal(again[0], dk)
+            and torch.equal(again[1], dv)):
+        raise AssertionError(f"flash backward{what}: a rerun is not bit-identical")
+    return {"flash_bwd_dq": _max_err(dq, dq_ref),
+            "flash_bwd_dkv": max(_max_err(dk, dk_ref), _max_err(dv, dv_ref))}
+
+
+def sdpa_times(q, k, v, pad, do):
+    """SDPA (GQA, the same causal + padding bool mask) at K5-K7's inputs:
+    the forward (a CUDA graph's replay) and the backward alone
+    (`torch.autograd.grad` of one saved forward: its kernels' device time
+    over 10 calls from the profiler, since CUDA events around the calls
+    also time autograd's host work); logs which backend's kernels ran."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    t = q.shape[1]
+    pos = torch.arange(t, device=q.device)
+    am = (pos[None, :] <= pos[:, None])[None, None] & pad.bool()[:, None, None, :]
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    fwd = cuda_ms(lambda: sdpa(qt, kt, vt, attn_mask=am, enable_gqa=True), 10)
+    qg, kg, vg = (x.detach().clone().requires_grad_() for x in (qt, kt, vt))
+    og = sdpa(qg, kg, vg, attn_mask=am, enable_gqa=True)
+    dot_ = do.transpose(1, 2)
+
+    def bwd():
+        return torch.autograd.grad(og, (qg, kg, vg), dot_, retain_graph=True)
+
+    events_ms = event_ms(bwd, 10)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            bwd()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    bwd_ms = sum(e.self_device_time_total for e in kernels) / 10 / 1e3
+    log(f"  sdpa (enable_gqa, bool mask) at b {q.shape[0]}, t {t}, {q.shape[2]}/"
+        f"{k.shape[2]} heads, hd {q.shape[3]}: forward_ms {fwd:.4f} backward_alone_ms "
+        f"{bwd_ms:.4f} (its kernels' device time; CUDA events around the calls "
+        f"{events_ms:.4f}, autograd's host work included); backward kernels "
+        f"{sorted(e.key[:60] for e in kernels)}")
+    return fwd, bwd_ms
+
+
 def check_flash_hd128(g):
-    """K5's bf16 tensor-core instance at hd 128 (the training shape reaches
-    only hd 64): b 4, t 512, 16/4 heads, ragged right padding, a left-padded
-    row and a row with no valid key; O 2e-2, LSE 1e-3 abs + 1e-4 rel, the
-    dead rows identical. Logged with its plain and SDPA times."""
+    """K5-K7's bf16 tensor-core instances at hd 128 (the training shape
+    reaches only hd 64): b 4, t 512, 16/4 heads, ragged right padding, a
+    left-padded row and a row with no valid key; O, dQ, dK, dV 2e-2 abs +
+    2e-2 rel, LSE 1e-3 abs + 1e-4 rel, the dead rows identical (forward) or
+    exactly 0 (backward), reruns of K6/K7 bit-identical. Logged with the
+    plain and SDPA times (forward; backward alone against K6 + K7)."""
     from kalle_tpu_torch.ops.kernels import flash_attention as fa
 
     b, t, nq, nkv, hd = 4, TRAIN_T, 16, 4, 128
     dev, bf = "cuda", torch.bfloat16
-    q = torch.randn(b, t, nq, hd, generator=g, device=dev).to(bf)
+    q, do = (torch.randn(b, t, nq, hd, generator=g, device=dev).to(bf) for _ in range(2))
     k, v = (torch.randn(b, t, nkv, hd, generator=g, device=dev).to(bf) for _ in range(2))
     lens = torch.randint(t // 2, t + 1, (b,), generator=g, device=dev)
     pad = (torch.arange(t, device=dev)[None] < lens[:, None]).to(torch.int32)
@@ -567,19 +646,28 @@ def check_flash_hd128(g):
             and torch.all(o[2] == 0) and torch.all(o[1, :77] == 0)):
         raise AssertionError("flash_fwd hd 128: the rows with no valid key differ")
     _assert_close("flash_fwd hd 128 LSE", lse[~dead], lse_ref[~dead], 1e-3, 1e-4)
-    pos = torch.arange(t, device=dev)
-    am = (pos[None, :] <= pos[:, None])[None, None] & pad.bool()[:, None, None, :]
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    k_ms = cuda_ms(lambda: fa.flash_fwd(q, k, v, pad), 10)
-    p_ms = cuda_ms(lambda: fa.flash_attention_fwd_plain(q, k, v, pad), 3)
-    l_ms = cuda_ms(lambda: sdpa(qt, kt, vt, attn_mask=am, enable_gqa=True), 10)
+    delta = fa.attention_delta(o_ref, do)
+    errs = check_flash_bwd(fa, q, k, v, pad, do, lse_ref, delta, " hd 128")
+    args = (q, k, v, pad, do, lse_ref, delta)
+    l_fwd, l_bwd = sdpa_times(q, k, v, pad, do)
     pairs = float(pad.cumsum(-1).sum()) * nq
-    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * b * t + 4 * b * nq * t
-    b_ms, b_by = bound(nbytes, pairs * 4 * hd)
-    log(f"  flash_fwd hd 128 (b {b}, t {t}, {nq}/{nkv} heads): kernel_ms {k_ms:.4f} "
-        f"plain_ms {p_ms:.4f} sdpa_ms {l_ms:.4f} bound_ms {b_ms:.4f} ({b_by}) O max_abs_err "
-        f"{_max_err(o, o_ref):.4g} LSE max_abs_err {_max_err(lse[~dead], lse_ref[~dead]):.4g}")
+    e_in = 2 * (q.numel() + k.numel() + v.numel()) + 4 * b * t
+    for name, fn, plain, nbytes, products, lib in (
+            ("flash_fwd", lambda: fa.flash_fwd(q, k, v, pad),
+             lambda: fa.flash_attention_fwd_plain(q, k, v, pad),
+             e_in + 2 * q.numel() + 4 * b * nq * t, 2, l_fwd),
+            ("flash_bwd_dq", lambda: fa.flash_bwd_dq(*args), lambda: fa.flash_bwd_dq_plain(*args),
+             e_in + 4 * q.numel() + 8 * b * nq * t, 3, None),
+            ("flash_bwd_dkv", lambda: fa.flash_bwd_dkv(*args),
+             lambda: fa.flash_bwd_dkv_plain(*args),
+             e_in + 2 * do.numel() + 8 * b * nq * t + 2 * (k.numel() + v.numel()), 4, l_bwd)):
+        b_ms, b_by = bound(nbytes, pairs * products * 2 * hd)
+        err = _max_err(o, o_ref) if name == "flash_fwd" else errs[name]
+        lib = "none alone" if lib is None else f"{lib:.4f}"
+        log(f"  {name} hd 128 (b {b}, t {t}, {nq}/{nkv} heads): kernel_ms "
+            f"{cuda_ms(fn, 10):.4f} plain_ms {cuda_ms(plain, 3):.4f} sdpa_ms {lib} "
+            f"bound_ms {b_ms:.4f} ({b_by}) max_abs_err {err:.4g}")
+    log(f"  flash_fwd hd 128 LSE max_abs_err {_max_err(lse[~dead], lse_ref[~dead]):.4g}")
 
 
 def check_c3(g):
@@ -926,9 +1014,11 @@ def report_profile(prof, wall_s: float, what: str) -> None:
         return
     log(f"  profile of {what} (profiler on): wall_ms {wall_s * 1e3:.1f} device_busy_ms "
         f"{busy_us / 1e3:.1f} busy_share {busy_us / 1e6 / wall_s:.3f}")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
-        log(f"    {e.self_device_time_total / 1e3:9.3f} ms {e.count:7d} calls "
-            f"{e.self_device_time_total / busy_us:6.3f}  {e.key[:90]}")
+    ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
+    for i, e in enumerate(ranked):
+        if i < 12 or "flash_" in e.key:  # the top 12, and K5-K7 wherever they rank
+            log(f"    {e.self_device_time_total / 1e3:9.3f} ms {e.count:7d} calls "
+                f"{e.self_device_time_total / busy_us:6.3f}  {e.key[:90]}")
 
 
 def phase_train_reference():

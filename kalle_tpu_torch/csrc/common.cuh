@@ -35,6 +35,11 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, int n_src
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
                "l"(src), "r"(n_src));
 }
+// 4 bytes global -> shared (through L1); n_src 0 zero-fills, src not read.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int n_src = 4) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(n_src));
+}
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
 // Wait until at most N of this thread's committed groups are in flight.
 template <int N>

@@ -16,7 +16,9 @@
 // forward reads and writes about 43 MB (12.7 us at 3.35 TB/s) and does
 // about 7 GFLOP of products on the causal, unpadded pairs (about 7 us at
 // the bf16 tensor-core peak), so a kernel near its bound keeps both the
-// memory and the tensor cores busy (chip_smoke.py computes both).
+// memory and the tensor cores busy; the backward kernels do 1.5x (K6) and
+// 2x (K7) the forward's products over about as many bytes (chip_smoke.py
+// computes both).
 //
 // K5, bf16 (the training path): tensor cores. A block owns 64 query rows
 // of one (batch, query head), 16 rows a warp (4 warps); the grid walks the
@@ -36,7 +38,40 @@
 // padding test on every tile. O leaves through shared memory in 16-byte
 // stores, LSE from one lane a row.
 //
-// The f32 instance and K6/K7 are a first, simple version: scalar f32
+// K6, bf16: K5's grid, tiling and ring. Q's and dO's tiles are copied once
+// and held as A fragments; each lane keeps its two rows' LSE and delta in
+// registers. Per 64-key tile: S = Q.K^T and dP = dO.V^T by mma.sync;
+// p = masked ? 0 : exp(s hd^-0.5 - LSE) and dS = p (dp - delta) in the f32
+// accumulators; dQ += dS.K with dS rounded to bf16 straight from the
+// accumulators (K5's C -> A reuse) and K by ldmatrix.trans. dQ times
+// hd^-0.5 leaves through shared memory in 16-byte stores. At hd 128 S and
+// dP are formed 32 keys at a time, so Q, dO, dQ, S and dP fit the
+// registers.
+//
+// K7, bf16: the transposed frame. A block owns 64 key rows of one (batch,
+// KV head), 16 rows a warp; the grid walks the key tiles nearest position
+// 0 (the most query tiles) first. K's and V's tiles are copied once; the
+// block walks the g query heads of its group and, for each, the 64-query
+// tiles from the diagonal to t, Q's and dO's tiles with their LSE and
+// delta values coming through a two-stage cp.async ring. Per tile:
+// S^T = K.Q^T and dP^T = V.dO^T by mma.sync (Q's and dO's rows are the B
+// operand as they lie); p^T = masked ? 0 : exp(s^T hd^-0.5 - LSE[query])
+// (masked: a padded key, a query past t, a pair above the diagonal) and
+// dS^T = p^T (dp^T - delta[query]); dV += P^T.dO and dK += dS^T.Q with P^T
+// and dS^T rounded to bf16 from the accumulators, dO and Q by
+// ldmatrix.trans. The GQA group sum happens inside the block in a fixed
+// order, with no atomics, so a rerun is bit-identical (the TPU sums
+// per-head outputs outside). dK is multiplied by hd^-0.5 in f32 at the end
+// (exact at hd 16 and 64, where it is a power of two). Registers: dK and
+// dV take NT*8 f32 a lane (128 at hd 128), so S^T and dP^T are formed 32
+// queries at a time at hd 64 and 16 at hd 128, and at hd 128 K's and V's
+// A fragments are re-read from shared memory for each chunk instead of
+// held (64 registers fewer, for one ldmatrix.x4 of each per 16 columns of
+// hd and 16 queries; with 32-query chunks this still spilled).
+// A padded key's p^T is 0 in every column, so its dK and dV are exactly 0;
+// a query with no valid key pairs only with masked keys, so its dQ is 0.
+//
+// The f32 instances are a first, simple version: scalar f32
 // FMAs, no tensor cores. Tensors stay in the model's
 // (b, t, heads, hd) layout — no folding copies; LSE and delta are (b, nq, t)
 // f32. A row of hd elements is split over TPR = hd/32 threads (1 for hd <=
@@ -47,14 +82,13 @@
 //       (16-byte loads, converted to f32) up to the block's last query;
 //       each row keeps the online-softmax m, l and acc in f32 over chunks
 //       of 16 keys and stops at its own diagonal.
-//   K6: the same grid; each row recomputes p from LSE, forms
+//   K6 f32: the same grid; each row recomputes p from LSE, forms
 //       ds = p (dO.v - delta) and accumulates ds.k in f32, one key at a
 //       time (no per-chunk arrays: unrolled chunks spilled registers).
-//   K7: one block per (b*nkv, 64-key tile), one thread group per key row.
-//       It walks the g query heads of its KV head and, for each, the query
-//       tiles from the diagonal down, accumulating dK and dV in f32 — the
-//       GQA group sum happens inside the block, with no atomics, so the
-//       result is deterministic (the TPU sums per-head outputs outside).
+//   K7 f32: one block per (b*nkv, 64-key tile), one thread group per key
+//       row. It walks the g query heads of its KV head and, for each, the
+//       query tiles from the diagonal down, accumulating dK and dV in f32,
+//       the group summed inside the block as in the bf16 instance.
 #include "common.cuh"
 
 #include <math.h>
@@ -63,9 +97,9 @@
 namespace {
 
 constexpr float NEG = -1e30f;
-constexpr int QT = 64;  // K5/K6: query rows per block
+constexpr int QT = 64;  // K5/K6: query rows per block; K7 (bf16): queries per tile
 constexpr int KT = 64;  // K5/K6: keys per shared-memory tile; K7: key rows per block
-constexpr int QB = 64;  // K7: query rows per shared-memory tile
+constexpr int QB = 64;  // K7 f32: query rows per shared-memory tile
 constexpr int CH = 16;  // K5: keys per register chunk of the online softmax
 
 template <int HD>
@@ -275,6 +309,72 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* __restrict__ sr
   }
 }
 
+// S's 64 rows -> rows [r0, r0 + 64) of one head by 16-byte stores; rows at
+// or past t are not written.
+template <int HD>
+__device__ __forceinline__ void store_tile(bf16* __restrict__ dst, const bf16* S, size_t stride,
+                                           int r0, int t) {
+  constexpr int PER = HD / 8;
+  for (int i = threadIdx.x; i < QT * PER; i += THREADS) {
+    const int r = i / PER, c = (i % PER) * 8;
+    if (r0 + r < t)
+      *reinterpret_cast<uint4*>(dst + (size_t)(r0 + r) * stride + c) =
+          *reinterpret_cast<const uint4*>(S + r * Tile<HD>::LD + c);
+  }
+}
+
+// A warp's A fragments of rows warp*16 .. +16, columns kk*16 .. +16 of S.
+template <int HD>
+__device__ __forceinline__ void a_frag(uint32_t (&a)[4], const bf16* S, int kk) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  ldsm_x4(a, S + (warp * 16 + (lane & 15)) * Tile<HD>::LD + kk * 16 + (lane >> 4) * 8);
+}
+
+// A warp's 16-row accumulators times mul -> its rows of S as bf16.
+template <int HD>
+__device__ __forceinline__ void frag_store(bf16* S, const float (&acc)[HD / 8][4], float mul) {
+  constexpr int LD = Tile<HD>::LD;
+  const int lane = threadIdx.x & 31, r = (threadIdx.x >> 5) * 16 + (lane >> 2);
+#pragma unroll
+  for (int i = 0; i < HD / 8; ++i) {
+    const int c = i * 8 + 2 * (lane & 3);
+    *reinterpret_cast<uint32_t*>(S + r * LD + c) = pack_bf16(acc[i][0] * mul, acc[i][1] * mul);
+    *reinterpret_cast<uint32_t*>(S + (r + 8) * LD + c) =
+        pack_bf16(acc[i][2] * mul, acc[i][3] * mul);
+  }
+}
+
+// d0 += a.b0, d1 += a.b1: the two 16x8 B fragments of one ldmatrix.x4.
+__device__ __forceinline__ void mma_pair(float (&d0)[4], float (&d1)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[4]) {
+  const uint32_t b0[2] = {b[0], b[1]}, b1[2] = {b[2], b[3]};
+  mma_bf16(d0, a, b0);
+  mma_bf16(d1, a, b1);
+}
+
+// Two 8-column accumulator tiles -> the A fragment of one 16-deep step
+// (the m16n8 C layout of tiles 2kk, 2kk + 1 is the A layout), rounded.
+__device__ __forceinline__ void c_to_a(uint32_t (&a)[4], const float (&c0)[4],
+                                       const float (&c1)[4]) {
+  a[0] = pack_bf16(c0[0], c0[1]);
+  a[1] = pack_bf16(c0[2], c0[3]);
+  a[2] = pack_bf16(c1[0], c1[1]);
+  a[3] = pack_bf16(c1[2], c1[3]);
+}
+
+// Key tile `tile` of one KV head -> stage tile & 1 of the (K, V) ring by
+// cp.async, and its padding flags (keys at or past t: 0) by plain stores.
+template <int HD>
+__device__ __forceinline__ void load_kv(bf16* KVs, int* Fs, const bf16* __restrict__ kb,
+                                        const bf16* __restrict__ vb,
+                                        const int* __restrict__ pb, size_t ks, int tile,
+                                        int t) {
+  const int st = tile & 1, k0 = tile * KT;
+  load_tile<HD>(KVs + (2 * st) * Tile<HD>::ROWS, kb, ks, k0, t);
+  load_tile<HD>(KVs + (2 * st + 1) * Tile<HD>::ROWS, vb, ks, k0, t);
+  for (int r = threadIdx.x; r < KT; r += THREADS) Fs[st * KT + r] = k0 + r < t && pb[k0 + r] != 0;
+}
+
 template <int HD>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -296,16 +396,8 @@ flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int* pb = pad + (size_t)bi * t;
   const int ntiles = (min(q0 + QT, t) - 1) / KT + 1;  // key tiles up to the diagonal
 
-  auto load_kv = [&](int tile) {
-    const int st = tile & 1, k0 = tile * KT;
-    load_tile<HD>(KVs + (2 * st) * TL::ROWS, kb, ks, k0, t);
-    load_tile<HD>(KVs + (2 * st + 1) * TL::ROWS, vb, ks, k0, t);
-    for (int r = threadIdx.x; r < KT; r += THREADS)
-      Fs[st * KT + r] = k0 + r < t && pb[k0 + r] != 0;
-  };
-
   load_tile<HD>(Qs, q + (size_t)bi * t * qs + h * HD, qs, q0, t);
-  load_kv(0);
+  load_kv<HD>(KVs, Fs, kb, vb, pb, ks, 0, t);
   cp_async_commit();
 
   uint32_t qf[KS][4];   // Q's A fragments, rows warp*16 .. +16
@@ -316,14 +408,13 @@ flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int qi0 = q0 + warp * 16 + (lane >> 2);  // this lane's rows: qi0, qi0 + 8
 
   for (int tile = 0; tile < ntiles; ++tile) {
-    if (tile + 1 < ntiles) load_kv(tile + 1);
+    if (tile + 1 < ntiles) load_kv<HD>(KVs, Fs, kb, vb, pb, ks, tile + 1, t);
     cp_async_commit();
     cp_async_wait<1>();  // this tile (and Q) landed
     __syncthreads();
     if (tile == 0) {
 #pragma unroll
-      for (int kk = 0; kk < KS; ++kk)
-        ldsm_x4(qf[kk], Qs + (warp * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
+      for (int kk = 0; kk < KS; ++kk) a_frag<HD>(qf[kk], Qs, kk);
     }
     const int st = tile & 1, k0 = tile * KT;
     const bf16* Ks = KVs + (2 * st) * TL::ROWS;
@@ -341,9 +432,7 @@ flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
         uint32_t b[4];
         ldsm_x4(b, Ks + (j * 8 + (lane & 7) + (lane >> 4) * 8) * LD + kk * 16 +
                        ((lane >> 3) & 1) * 8);
-        const uint32_t b0[2] = {b[0], b[1]}, b1[2] = {b[2], b[3]};
-        mma_bf16(sacc[j], qf[kk], b0);
-        mma_bf16(sacc[j + 1], qf[kk], b1);
+        mma_pair(sacc[j], sacc[j + 1], qf[kk], b);
       }
     }
 
@@ -391,18 +480,14 @@ flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // O += P . V: P (bf16) from the S accumulators, 16 keys a step
 #pragma unroll
     for (int kk = 0; kk < KT / 16; ++kk) {
-      const uint32_t a[4] = {pack_bf16(sacc[2 * kk][0], sacc[2 * kk][1]),
-                             pack_bf16(sacc[2 * kk][2], sacc[2 * kk][3]),
-                             pack_bf16(sacc[2 * kk + 1][0], sacc[2 * kk + 1][1]),
-                             pack_bf16(sacc[2 * kk + 1][2], sacc[2 * kk + 1][3])};
+      uint32_t a[4];
+      c_to_a(a, sacc[2 * kk], sacc[2 * kk + 1]);
 #pragma unroll
       for (int i = 0; i < NT; i += 2) {
         uint32_t b[4];
         ldsm_x4_t(b, Vs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + i * 8 +
                          (lane >> 4) * 8);
-        const uint32_t b0[2] = {b[0], b[1]}, b1[2] = {b[2], b[3]};
-        mma_bf16(oacc[i], a, b0);
-        mma_bf16(oacc[i + 1], a, b1);
+        mma_pair(oacc[i], oacc[i + 1], a, b);
       }
     }
     __syncthreads();  // the stage is free for tile + 2
@@ -429,14 +514,286 @@ flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
         pack_bf16(oacc[i][2] / den[1], oacc[i][3] / den[1]);
   }
   __syncthreads();
-  bf16* ob = o + (size_t)bi * t * qs + h * HD;
-  constexpr int PER = HD / 8;
-  for (int i = threadIdx.x; i < QT * PER; i += THREADS) {
-    const int r = i / PER, c = (i % PER) * 8;
-    if (q0 + r < t)
-      *reinterpret_cast<uint4*>(ob + (size_t)(q0 + r) * qs + c) =
-          *reinterpret_cast<const uint4*>(Os + r * LD + c);
+  store_tile<HD>(o + (size_t)bi * t * qs + h * HD, Os, qs, q0, t);
+}
+
+// ------------------------------------------------- K6 / K7, bf16 (mma) ---
+
+// Two held 64-row tiles (K6: Q, dO; K7: K, V), two stages of two streamed
+// tiles (K6: K, V; K7: Q, dO), then two stages of 64 padding flags (K6) or
+// of 64 LSE and 64 delta values (K7).
+template <int HD>
+struct BwdTile {
+  static constexpr size_t SMEM = (size_t)6 * Tile<HD>::ROWS * 2 + 2 * 2 * QT * 4;
+};
+
+template <int HD>
+__global__ void __launch_bounds__(THREADS)
+flash_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+             const bf16* __restrict__ v, const int* __restrict__ pad,
+             const bf16* __restrict__ dout, const float* __restrict__ lse,
+             const float* __restrict__ delta, bf16* __restrict__ dq, int t, int nq, int nkv,
+             float scale) {
+  using TL = Tile<HD>;
+  constexpr int LD = TL::LD, KS = HD / 16, NT = HD / 8;
+  constexpr int KC = HD >= 128 ? 32 : 64;  // keys of S and dP in registers at once
+  constexpr int NJ = KC / 8;
+  extern __shared__ float4 smem4[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem4);
+  bf16* Ds = Qs + TL::ROWS;   // dO
+  bf16* KVs = Ds + TL::ROWS;  // stage s: K at 2s, V at 2s + 1
+  int* Fs = reinterpret_cast<int*>(KVs + 4 * TL::ROWS);  // (2, KT) padding flags
+
+  const int bh = blockIdx.x, bi = bh / nq, h = bh % nq, kh = h / (nq / nkv);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * QT;  // heaviest tiles first
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const size_t qs = (size_t)nq * HD, ks = (size_t)nkv * HD;
+  const size_t qoff = (size_t)bi * t * qs + h * HD;
+  const bf16* kb = k + (size_t)bi * t * ks + kh * HD;
+  const bf16* vb = v + (size_t)bi * t * ks + kh * HD;
+  const int* pb = pad + (size_t)bi * t;
+  const int ntiles = (min(q0 + QT, t) - 1) / KT + 1;  // key tiles up to the diagonal
+
+  load_tile<HD>(Qs, q + qoff, qs, q0, t);
+  load_tile<HD>(Ds, dout + qoff, qs, q0, t);
+  load_kv<HD>(KVs, Fs, kb, vb, pb, ks, 0, t);
+  cp_async_commit();
+
+  const int qi0 = q0 + warp * 16 + (lane >> 2);  // this lane's rows: qi0, qi0 + 8
+  float lse_r[2], dl_r[2];  // rows past t read 0 (finite; their dQ is not stored)
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const bool live = qi0 + r * 8 < t;
+    lse_r[r] = live ? lse[(size_t)bh * t + qi0 + r * 8] : 0.f;
+    dl_r[r] = live ? delta[(size_t)bh * t + qi0 + r * 8] : 0.f;
   }
+  uint32_t qf[KS][4], df[KS][4];  // Q's and dO's A fragments
+  float acc[NT][4];               // dQ: rows (lane/4, +8), columns 8 nt + 2 (lane%4) + {0,1}
+#pragma unroll
+  for (int i = 0; i < NT; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+
+  for (int tile = 0; tile < ntiles; ++tile) {
+    if (tile + 1 < ntiles) load_kv<HD>(KVs, Fs, kb, vb, pb, ks, tile + 1, t);
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile (and Q, dO) landed
+    __syncthreads();
+    if (tile == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        a_frag<HD>(qf[kk], Qs, kk);
+        a_frag<HD>(df[kk], Ds, kk);
+      }
+    }
+    const int st = tile & 1, k0 = tile * KT;
+    const bf16* Ks = KVs + (2 * st) * TL::ROWS;
+    const bf16* Vs = KVs + (2 * st + 1) * TL::ROWS;
+    const int* fl = Fs + st * KT;
+    const bool diag = k0 + KT > q0;  // the tile that holds the diagonal
+
+#pragma unroll
+    for (int c0 = 0; c0 < KT; c0 += KC) {
+      // S = Q.K^T and dP = dO.V^T: K's and V's rows are the B operand as they lie
+      float s[NJ][4], dp[NJ][4];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int j = 0; j < NJ; j += 2) {
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) {
+          const int off =
+              (c0 + j * 8 + (lane & 7) + (lane >> 4) * 8) * LD + kk * 16 + ((lane >> 3) & 1) * 8;
+          uint32_t b[4];
+          ldsm_x4(b, Ks + off);
+          mma_pair(s[j], s[j + 1], qf[kk], b);
+          ldsm_x4(b, Vs + off);
+          mma_pair(dp[j], dp[j + 1], df[kk], b);
+        }
+      }
+      // p = exp(s scale - LSE), exactly 0 where masked; dS = p (dp - delta)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = c0 + j * 8 + 2 * (lane & 3) + (e & 1), r = e >> 1;
+          const bool ok = fl[c] && (!diag || k0 + c <= qi0 + r * 8);
+          const float p = ok ? __expf(s[j][e] * scale - lse_r[r]) : 0.f;
+          s[j][e] = p * (dp[j][e] - dl_r[r]);
+        }
+      }
+      // dQ += dS.K: dS (bf16) from the accumulators, K by ldmatrix.trans
+#pragma unroll
+      for (int kk = 0; kk < KC / 16; ++kk) {
+        uint32_t a[4];
+        c_to_a(a, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+        for (int i = 0; i < NT; i += 2) {
+          uint32_t b[4];
+          ldsm_x4_t(b, Ks + (c0 + kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + i * 8 +
+                           (lane >> 4) * 8);
+          mma_pair(acc[i], acc[i + 1], a, b);
+        }
+      }
+    }
+    __syncthreads();  // the stage is free for tile + 2
+  }
+
+  // Q's tile is in registers: its shared memory takes dQ * scale
+  frag_store<HD>(Qs, acc, scale);
+  __syncthreads();
+  store_tile<HD>(dq + qoff, Qs, qs, q0, t);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(THREADS)
+flash_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+              const bf16* __restrict__ v, const int* __restrict__ pad,
+              const bf16* __restrict__ dout, const float* __restrict__ lse,
+              const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv,
+              int t, int nq, int nkv, float scale) {
+  using TL = Tile<HD>;
+  constexpr int LD = TL::LD, KS = HD / 16, NT = HD / 8;
+  constexpr int QC = HD >= 128 ? 16 : HD >= 64 ? 32 : 64;  // queries of S^T, dP^T at once
+  constexpr int NJ = QC / 8;
+  constexpr bool HOLD = HD <= 64;  // K's and V's A fragments kept in registers
+  extern __shared__ float4 smem4[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem4);
+  bf16* Vs = Ks + TL::ROWS;
+  bf16* QDs = Vs + TL::ROWS;  // stage s: Q at 2s, dO at 2s + 1
+  float* Ls = reinterpret_cast<float*>(QDs + 4 * TL::ROWS);  // (2, QT) LSE
+  float* Dl = Ls + 2 * QT;                                    // (2, QT) delta
+
+  const int bk = blockIdx.x, bi = bk / nkv, kh = bk % nkv, g = nq / nkv;
+  const int k0 = blockIdx.y * KT;  // heaviest key tiles (nearest position 0) first
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const size_t qs = (size_t)nq * HD, ks = (size_t)nkv * HD;
+  const size_t koff = (size_t)bi * t * ks + kh * HD;
+  const int nqt = (t - k0 + QT - 1) / QT;  // a head's query tiles, from the diagonal to t
+  const int ntiles = g * nqt;              // over the g query heads of the group
+
+  auto load_q = [&](int n) {
+    const int st = n & 1, h = kh * g + n / nqt, q0 = k0 + (n % nqt) * QT;
+    const size_t off = (size_t)bi * t * qs + h * HD, row0 = ((size_t)bi * nq + h) * t + q0;
+    load_tile<HD>(QDs + (2 * st) * TL::ROWS, q + off, qs, q0, t);
+    load_tile<HD>(QDs + (2 * st + 1) * TL::ROWS, dout + off, qs, q0, t);
+    for (int i = threadIdx.x; i < 2 * QT; i += THREADS) {
+      const int c = i % QT;
+      const bool live = q0 + c < t;
+      const float* src = (i < QT ? lse : delta) + row0 + c;
+      cp_async4((i < QT ? Ls : Dl) + st * QT + c, live ? src : lse, live ? 4 : 0);
+    }
+  };
+
+  load_tile<HD>(Ks, k + koff, ks, k0, t);
+  load_tile<HD>(Vs, v + koff, ks, k0, t);
+  load_q(0);
+  cp_async_commit();
+
+  const int kj0 = k0 + warp * 16 + (lane >> 2);  // this lane's key rows: kj0, kj0 + 8
+  bool kok[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    kok[r] = kj0 + r * 8 < t && pad[(size_t)bi * t + kj0 + r * 8] != 0;
+  uint32_t kf[KS][4], vf[KS][4];  // HOLD: K's and V's A fragments
+  float dka[NT][4], dva[NT][4];   // rows (lane/4, +8), columns 8 nt + 2 (lane%4) + {0,1}
+#pragma unroll
+  for (int i = 0; i < NT; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[i][e] = dva[i][e] = 0.f;
+
+  for (int n = 0; n < ntiles; ++n) {
+    if (n + 1 < ntiles) load_q(n + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile (and K, V) landed
+    __syncthreads();
+    if (HOLD && n == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        a_frag<HD>(kf[kk], Ks, kk);
+        a_frag<HD>(vf[kk], Vs, kk);
+      }
+    }
+    const int st = n & 1, q0 = k0 + (n % nqt) * QT;
+    const bf16* Qs = QDs + (2 * st) * TL::ROWS;
+    const bf16* Ds = Qs + TL::ROWS;
+    const float* L = Ls + st * QT;
+    const float* D = Dl + st * QT;
+    const bool diag = q0 == k0;  // the tile that holds the diagonal
+
+#pragma unroll
+    for (int c0 = 0; c0 < QT; c0 += QC) {
+      // S^T = K.Q^T and dP^T = V.dO^T: Q's and dO's rows are the B operand as they lie
+      float s[NJ][4], dp[NJ][4];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        uint32_t ak[4], av[4];
+        if constexpr (HOLD) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) ak[e] = kf[kk][e], av[e] = vf[kk][e];
+        } else {
+          a_frag<HD>(ak, Ks, kk);
+          a_frag<HD>(av, Vs, kk);
+        }
+#pragma unroll
+        for (int j = 0; j < NJ; j += 2) {
+          const int off =
+              (c0 + j * 8 + (lane & 7) + (lane >> 4) * 8) * LD + kk * 16 + ((lane >> 3) & 1) * 8;
+          uint32_t b[4];
+          ldsm_x4(b, Qs + off);
+          mma_pair(s[j], s[j + 1], ak, b);
+          ldsm_x4(b, Ds + off);
+          mma_pair(dp[j], dp[j + 1], av, b);
+        }
+      }
+      // p^T = exp(s^T scale - LSE[query]), exactly 0 where masked (padded key,
+      // query past t, or above the diagonal); dS^T = p^T (dp^T - delta[query])
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int c = c0 + j * 8 + 2 * (lane & 3);
+        const float2 lc = *reinterpret_cast<const float2*>(L + c);
+        const float2 dc = *reinterpret_cast<const float2*>(D + c);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = q0 + c + (e & 1), r = e >> 1;
+          const bool ok = kok[r] && qi < t && (!diag || kj0 + r * 8 <= qi);
+          const float p = ok ? __expf(s[j][e] * scale - ((e & 1) ? lc.y : lc.x)) : 0.f;
+          dp[j][e] = p * (dp[j][e] - ((e & 1) ? dc.y : dc.x));
+          s[j][e] = p;
+        }
+      }
+      // dV += P^T.dO and dK += dS^T.Q: P^T, dS^T (bf16) from the
+      // accumulators, dO and Q by ldmatrix.trans
+#pragma unroll
+      for (int kk = 0; kk < QC / 16; ++kk) {
+        uint32_t ap[4], ads[4];
+        c_to_a(ap, s[2 * kk], s[2 * kk + 1]);
+        c_to_a(ads, dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+        for (int i = 0; i < NT; i += 2) {
+          const int off =
+              (c0 + kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + i * 8 + (lane >> 4) * 8;
+          uint32_t b[4];
+          ldsm_x4_t(b, Ds + off);
+          mma_pair(dva[i], dva[i + 1], ap, b);
+          ldsm_x4_t(b, Qs + off);
+          mma_pair(dka[i], dka[i + 1], ads, b);
+        }
+      }
+    }
+    __syncthreads();  // the stage is free for tile n + 2
+  }
+
+  // K and V are read no more: their shared memory takes dK * scale and dV
+  frag_store<HD>(Ks, dka, scale);
+  frag_store<HD>(Vs, dva, 1.f);
+  __syncthreads();
+  store_tile<HD>(dk + koff, Ks, ks, k0, t);
+  store_tile<HD>(dv + koff, Vs, ks, k0, t);
 }
 
 }  // namespace tc
@@ -599,15 +956,32 @@ cudaError_t run(int which, const Args& a) {
           q, k, v, pad, (T*)a.o, (float*)a.lse_out, a.t, a.nq, a.nkv, scale);
     }
   } else if (which == 1) {
-    if ((e = allow_smem(flash_dq<T, HD>, smem)) != cudaSuccess) return e;
-    flash_dq<T, HD><<<dim3((a.t + QT - 1) / QT, a.b * a.nq), QT * TPR, smem, a.s>>>(
-        q, k, v, pad, d, (const float*)a.lse, (const float*)a.delta, (T*)a.dq, a.t, a.nq,
-        a.nkv, scale);
+    if constexpr (std::is_same<T, bf16>::value) {  // tensor cores
+      constexpr size_t tc_smem = tc::BwdTile<HD>::SMEM;
+      if ((e = allow_smem(tc::flash_dq_mma<HD>, tc_smem)) != cudaSuccess) return e;
+      tc::flash_dq_mma<HD><<<dim3(a.b * a.nq, (a.t + QT - 1) / QT), tc::THREADS, tc_smem,
+                             a.s>>>(q, k, v, pad, d, (const float*)a.lse,
+                                    (const float*)a.delta, (T*)a.dq, a.t, a.nq, a.nkv, scale);
+    } else {
+      if ((e = allow_smem(flash_dq<T, HD>, smem)) != cudaSuccess) return e;
+      flash_dq<T, HD><<<dim3((a.t + QT - 1) / QT, a.b * a.nq), QT * TPR, smem, a.s>>>(
+          q, k, v, pad, d, (const float*)a.lse, (const float*)a.delta, (T*)a.dq, a.t, a.nq,
+          a.nkv, scale);
+    }
   } else {
-    if ((e = allow_smem(flash_dkv<T, HD>, smem)) != cudaSuccess) return e;
-    flash_dkv<T, HD><<<dim3((a.t + KT - 1) / KT, a.b * a.nkv), KT * TPR, smem, a.s>>>(
-        q, k, v, pad, d, (const float*)a.lse, (const float*)a.delta, (T*)a.dk, (T*)a.dv, a.t,
-        a.nq, a.nkv, scale);
+    if constexpr (std::is_same<T, bf16>::value) {  // tensor cores
+      constexpr size_t tc_smem = tc::BwdTile<HD>::SMEM;
+      if ((e = allow_smem(tc::flash_dkv_mma<HD>, tc_smem)) != cudaSuccess) return e;
+      tc::flash_dkv_mma<HD><<<dim3(a.b * a.nkv, (a.t + KT - 1) / KT), tc::THREADS, tc_smem,
+                              a.s>>>(q, k, v, pad, d, (const float*)a.lse,
+                                     (const float*)a.delta, (T*)a.dk, (T*)a.dv, a.t, a.nq,
+                                     a.nkv, scale);
+    } else {
+      if ((e = allow_smem(flash_dkv<T, HD>, smem)) != cudaSuccess) return e;
+      flash_dkv<T, HD><<<dim3((a.t + KT - 1) / KT, a.b * a.nkv), KT * TPR, smem, a.s>>>(
+          q, k, v, pad, d, (const float*)a.lse, (const float*)a.delta, (T*)a.dk, (T*)a.dv,
+          a.t, a.nq, a.nkv, scale);
+    }
   }
   return cudaGetLastError();
 }

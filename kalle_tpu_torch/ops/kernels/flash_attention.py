@@ -7,7 +7,8 @@ log-sum-exp rows) and whose backward is K6 (`flash_bwd_dq`) and K7
 (`flash_bwd_dkv`, dK/dV summed over each GQA group inside the kernel).
 delta = rowsum(dO * O) stays a plain tensor op, as on the TPU.
 
-On CUDA tensors the wrappers launch `csrc/flash_attention.cu`; on CPU
+On CUDA tensors the wrappers launch `csrc/flash_attention.cu` (bf16:
+the tensor-core instances of K5-K7; f32: scalar instances); on CPU
 tensors they run the plain versions below, which write out the same math:
 masked scores (-1e30), p = exp(s - m) with masked p exactly 0, LSE = -1e30
 and O = 0 on a row with no valid key, p = exp(s - LSE) recomputed in the

@@ -4,8 +4,10 @@ small and ragged shapes the main path does not reach (C not a multiple of
 64, f32 and int8 caches, K1's sideband, K1 at 16 heads a group and hd 256,
 dense bf16 weights, K2 split over K at M 1..130, K2/K3 with f32
 activations, ConvNeXt widths outside the decoder's and mlp_ratio 3; flash
-attention at t 128 to 512 with fully masked rows, f32 and bf16, K5's
-tensor-core instance at every head dim), one flash train_step against the
+attention at t 128 to 512 with fully masked rows, f32 and bf16, K5's,
+K6's and K7's tensor-core instances at every head dim, K6/K7 also at t 200
+and GQA groups 1, 4 and 8 with their dead rows exactly 0 and reruns
+bit-identical), one flash train_step against the
 plain path, and whole paths on the card against the CPU: `generate` on the
 tiny f32 config (dense and int8 weights) and at batch 72, the tiny codec
 in bf16, and the continuous batcher. Needs an NVIDIA GPU and nvcc; skipped elsewhere. On
@@ -314,6 +316,45 @@ def test_flash_fwd_bf16_tensor_cores(g, hd, t):
     assert torch.equal(lse <= k567.NEG / 2, dead) and torch.equal(lse[dead], lse_ref[dead])
     assert torch.all(o[2] == 0) and torch.all(o[1, :70] == 0)
     torch.testing.assert_close(lse[~dead], lse_ref[~dead], atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.parametrize("group", [1, 4, 8])
+@pytest.mark.parametrize("t", [128, 200, 512])
+@pytest.mark.parametrize("hd", k567.HEAD_DIMS)
+def test_flash_bwd_bf16_tensor_cores(g, hd, t, group):
+    """K6's and K7's bf16 instances (mma.sync) at every head dim, called
+    directly (t 200 is not a multiple of the 64-row tiles), GQA groups 1, 4
+    and 8: ragged right padding, a left-padded row, a row with no valid
+    key. dQ, dK, dV 2e-2 abs + 2e-2 rel of the plain versions; the dead
+    rows (queries with no valid key, padded keys) exactly 0; one launch
+    counted a call; a rerun bit-identical."""
+    b, nkv = 4, 2
+    nq = nkv * group
+    q, do = (torch.randn(b, t, nq, hd, generator=g, device="cuda").to(BF) for _ in range(2))
+    k, v = (torch.randn(b, t, nkv, hd, generator=g, device="cuda").to(BF) for _ in range(2))
+    pad = torch.ones(b, t, dtype=torch.int32, device="cuda")
+    pad[0, t - 37:] = 0
+    pad[1, :70] = 0  # queries 0..69 see no valid key
+    pad[2] = 0       # no valid key at all
+    o, lse = k567.flash_attention_fwd_plain(q, k, v, pad)
+    delta = k567.attention_delta(o, do)
+    args = (q, k, v, pad, do, lse, delta)
+    counts = _build.launches()
+    dq = k567.flash_bwd_dq(*args)
+    dk, dv = k567.flash_bwd_dkv(*args)
+    after = _build.launches()
+    assert after.get(k567.NAME_DQ, 0) == counts.get(k567.NAME_DQ, 0) + 1
+    assert after.get(k567.NAME_DKV, 0) == counts.get(k567.NAME_DKV, 0) + 1
+    _close(dq, k567.flash_bwd_dq_plain(*args), 2e-2)
+    for got, ref in zip((dk, dv), k567.flash_bwd_dkv_plain(*args)):
+        _close(got, ref, 2e-2)
+    assert torch.all(dq[2] == 0) and torch.all(dq[1, :70] == 0)
+    for x in (dk, dv):
+        assert torch.all(x[2] == 0) and torch.all(x[1, :70] == 0)
+        assert torch.all(x[0, t - 37:] == 0)
+    assert torch.equal(k567.flash_bwd_dq(*args), dq)
+    dk2, dv2 = k567.flash_bwd_dkv(*args)
+    assert torch.equal(dk2, dk) and torch.equal(dv2, dv)
 
 
 @pytest.mark.parametrize("remat", ["none", "full", "dots"])
