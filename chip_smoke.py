@@ -36,13 +36,21 @@ Phases (any failure exits nonzero and prints no result):
      against `generate` (fed the batcher's left-padded bucket prompts) on
      the card for 4 prompts over 16 frames (in f32 all 16 frames within
      1e-3; in bf16 with int8 weights frames 0-7 within max(2e-2, 4x the
-     drift of a rerun of `generate`), the rest printed); then serve_http
+     departure of `generate` through K3's plain version with the FFN
+     columns reversed from it as it is: the same sums in another order),
+     the rest printed; the batcher with a planted one-slot fault must fail
+     that bar in both dtypes); then serve_http
      on port 0 with the real BatcherService (batch 8, chunks of 25
      frames) and the bf16 SigmaVAE: eight concurrent GET /tts clients,
      each body the wav header and
      exactly (128 - 1) * 3200 * 2 PCM bytes, with time to first audio and
      total seconds a request.
 
+Phase 1 fails if a bf16 instance of K3 or K4 (or K6/K7 at hd 64) spills.
+Phase 2 holds K3 at M 8, 32 and 72 (1e-2 relative) and K4 at the five
+decoder widths (2e-2 abs + rel), each rerun bit-identical, K3 beside a
+composed three-call yardstick and K4 width by width against its bound;
+the profiles of phases 3 and 5 print K3's and K4's device time.
 Phase 2 also holds K5-K7 (flash attention forward, dq, dk/dv) against
 their plain versions at the flagship training shape (b 8, t 512, 32/8
 heads, hd 64, bf16; ragged pads, a left-padded row, a row with no valid
@@ -50,8 +58,8 @@ key) and at hd 128 (b 4, 16/4 heads), with K6's and K7's dead rows
 exactly 0 and their reruns bit-identical, beside SDPA's forward and its
 backward alone (the yardstick of K6 + K7), K1's sideband mode at phase 5's
 shapes (batch 8 and 32, cache 384, ragged rows, some rows' new column not
-counted), K2 at M 8, 32 and 72 and K3 at both serving batches, M 8 and 32
-(the kernels line keeps M 32), and, once each, the inputs that raised
+counted), K2 at M 8, 32 and 72 (the kernels line keeps M 32), and, once
+each, the inputs that raised
 before C3's repair: K1 at 16 query heads a KV head and hd 256 in all three
 modes, K2/K3 with f32 activations, and the tiny f32 config with int8
 weights decoding on the card against the CPU. Launch counts: K1-K4 from
@@ -183,6 +191,14 @@ def ptxas_report(text: str):
     return out
 
 
+# kernels that must not spill: K6/K7 bf16 at hd 64, K3's bf16 instances
+# (int8 and bf16 weights, 8..64-row tiles) and its cluster sum, K4's
+# tensor-core instances
+# (names demangled by c++filt, or mangled where it is missing)
+SPILL_FREE = (r"flash_d(q|kv)_mma(<64>|ILi64E)|k3::(mlp|sum)_kernel|k310(mlp|sum)_kernel"
+              r"|convnext_tc_kernel(<|ILi)")
+
+
 def phase_build():
     from kalle_tpu_torch.ops.kernels import _build
 
@@ -194,8 +210,9 @@ def phase_build():
     for lib in sorted(_build.BUILD_DIR.glob("*.log")):
         for name, regs, spill in ptxas_report(lib.read_text()):
             log(f"  ptxas {lib.stem.split('-')[0]} {name}: {regs} registers, {spill}")
-            # K6's and K7's bf16 instances at the training head dim must not spill
-            if (re.search(r"flash_d(q|kv)_mma(<64>|ILi64E)", name)
+            # K6's and K7's bf16 instances at the training head dim, and K3's
+            # and K4's bf16 tensor-core instances, must not spill
+            if (re.search(SPILL_FREE, name)
                     and "0 bytes spill stores, 0 bytes spill loads" not in spill):
                 raise AssertionError(f"{name} spills registers: {spill}")
     nv = subprocess.run([_build.nvcc(), "--version"], capture_output=True,
@@ -427,31 +444,58 @@ def check_qmm(g):
 
 
 def check_fused_mlp(g):
-    """K3 at both serving batches, as check_qmm."""
-    from kalle_tpu_torch.ops.kernels.qmm import fused_mlp, fused_mlp_plain
+    """K3 at both serving batches (M 8 and 32 pick different instances) and
+    at M 72 (two row tiles, the second ragged): within 1e-2 relative of the
+    plain version, a second launch bit-identical to the first; timed over
+    16 layers' weights beside the plain version and a composed yardstick
+    (`torch.matmul` of x with the pre-dequantized bf16 [wg | wu], `silu(g)
+    * u`, `torch.matmul` with the bf16 wd: three calls on twice the bytes,
+    logged in the note). The row of the kernels line is M 32; M 8 and 72
+    are logged."""
+    from torch.nn.functional import silu
+
+    from kalle_tpu_torch.ops.kernels.qmm import fused_mlp, fused_mlp_plain, fused_mlp_plan
 
     L, H, F = 16, 2048, 8192
     wg, wu, wd = (_int8_layers(g, L, *s) for s in ((H, F), (H, F), (F, H)))
+    wgu_deq = torch.cat([(q.float() * s[:, None]).to(torch.bfloat16) for q, s in (wg, wu)],
+                        dim=2)
+    wd_deq = (wd[0].float() * wd[1][:, None]).to(torch.bfloat16)
 
     def layer(i):
         return [{"q": q[i], "scale": s[i]} for q, s in (wg, wu, wd)]
 
+    def composed(x, i):
+        gu = torch.matmul(x, wgu_deq[i])
+        return torch.matmul(silu(gu[:, :F]) * gu[:, F:], wd_deq[i])
+
+    xs = _x_rows(g, H)
+    xs[72] = torch.randn(72, H, generator=g, device="cuda").to(torch.bfloat16)
     rows = {}
-    for M, x in sorted(_x_rows(g, H).items()):
+    for M, x in sorted(xs.items()):
         got, ref = fused_mlp(x, *layer(5)), fused_mlp_plain(x, *layer(5))
         rel = _rel_err(got, ref)
         if rel > 1e-2:
             raise AssertionError(f"fused_mlp M={M}: relative error {rel:.4g} > 1e-2")
+        if not torch.equal(fused_mlp(x, *layer(5)), got):
+            raise AssertionError(f"fused_mlp M={M}: a rerun is not bit-identical")
         li = iter(range(10 ** 9))
         kern = cuda_ms(lambda: fused_mlp(x, *layer(next(li) % L)), 64)
         plain = cuda_ms(lambda: fused_mlp_plain(x, *layer(next(li) % L)), 16)
+        comp = cuda_ms(lambda: composed(x, next(li) % L), 64)
         nbytes = 3 * H * F + (2 * F + H) * 4 + 2 * M * H * 2
+        plan = fused_mlp_plan(M, H, F)
         rows[M] = dict(name="fused_mlp", source="kalle_tpu_torch/csrc/qmm.cu",
                        replaces="kalle_tpu/ops/pallas/qmm.py:151",
                        max_abs_err=_max_err(got, ref), ms=kern, plain_ms=plain,
                        library_ms=None, work=(nbytes, 3 * 2 * M * H * F),
-                       note=f"one layer, M={M}, int8 (tolerance 1e-2 relative)")
+                       note=f"one layer, M={M}, int8 (tolerance 1e-2 relative, rerun "
+                            f"bit-identical); composed_ms {comp:.4f} (matmul [wg|wu], "
+                            f"silu*u, matmul wd on pre-dequantized bf16); "
+                            f"{plan['clusters']} clusters of {plan['cluster']} blocks, "
+                            f"{plan['stages']} stages")
     log_row(rows[8])
+    log_row(rows[72])
     return rows[BATCH]
 
 
@@ -475,14 +519,18 @@ def check_convnext(g):
         x = torch.randn(BATCH, t, c, generator=g, device="cuda").to(torch.bfloat16)
         got, ref = convnext_block(x, *args), convnext_block_plain(x, *args)
         _assert_close(f"convnext_block C={c} T={t}", got, ref, 2e-2, 2e-2)
+        if not torch.equal(convnext_block(x, *args), got):
+            raise AssertionError(f"convnext_block C={c} T={t}: a rerun is not bit-identical")
         iters = 20 if t <= 5120 else 5
         k_ms = cuda_ms(lambda: convnext_block(x, *args), iters)
         p_ms = cuda_ms(lambda: convnext_block_plain(x, *args), max(2, iters // 4))
         err = _max_err(got, ref)
         nbytes = 2 * BATCH * t * c * 2 + sum(a.numel() * 2 for a in args)
         flops = BATCH * t * (12 * c * c + 14 * c)
+        b_ms, b_by = bound(nbytes, flops)
         log(f"  convnext_block C={c} T={t}: kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} "
-            f"bound_ms {bound(nbytes, flops)[0]:.4f} max_abs_err {err:.4g}")
+            f"bound_ms {b_ms:.4f} ({b_by}, {k_ms / b_ms:.2f}x) max_abs_err {err:.4g} "
+            "(tolerance 2e-2 abs + 2e-2 rel, rerun bit-identical)")
         tot["ms"] += k_ms
         tot["plain_ms"] += p_ms
         tot["err"] = max(tot["err"], err)
@@ -1014,6 +1062,12 @@ def report_profile(prof, wall_s: float, what: str) -> None:
         return
     log(f"  profile of {what} (profiler on): wall_ms {wall_s * 1e3:.1f} device_busy_ms "
         f"{busy_us / 1e3:.1f} busy_share {busy_us / 1e6 / wall_s:.3f}")
+    for label, pat in (("K3 fused_mlp (k3::mlp_kernel + k3::sum_kernel)", "k3::"),
+                       ("K4 convnext_block (convnext_tc_kernel)", "convnext_tc_kernel")):
+        mine = [e for e in kernels if pat in e.key]
+        if mine:
+            log(f"    {label}: device_ms {sum(e.self_device_time_total for e in mine) / 1e3:.3f}"
+                f" in {sum(e.count for e in mine)} kernel launches")
     ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
     for i, e in enumerate(ranked):
         if i < 12 or "flash_" in e.key:  # the top 12, and K5-K7 wherever they rank
@@ -1148,17 +1202,49 @@ def serve_cross_check(params_int8, prompts):
     the two are the same arithmetic in another order, so all 16 frames must
     agree to 1e-3 of the largest |mean|. In bf16 with int8 weights (the
     serving path) each frame is fed back through 16 layers of a random
-    full-width model, which amplifies bf16 rounding about 1.6x a frame, so a
-    rerun of `generate` itself (K3's atomics reorder its sums) drifts too.
-    There frames 0-7 (six decode steps that read written columns) must each
-    stay within max(2e-2, 4 x the rerun's largest departure up to that
-    frame); the whole curves are printed."""
+    full-width model, which amplifies bf16 rounding about 1.6x a frame. The
+    bar there is that amplification of rounding-level noise, measured with
+    no kernel under test: `generate` with the MLP through K3's plain
+    version, once as it is and once with the FFN columns in reverse order
+    (wg's and wu's columns, wd's rows: the same f32 sums over F in another
+    order, the kind of difference K1's sideband makes in attention). Frames
+    0-7 (six decode steps that read written columns) must each stay within
+    max(2e-2, 4 x that departure's largest value up to the frame).
+
+    The check must also see a fault of one slot: the batcher again, with
+    row 0's new column dropped from K1's sideband in every decode step,
+    must fail the same bar in both dtypes. The whole curves are printed."""
     from kalle_tpu_torch.core.config import LlamaConfig, LlasaConfig
+    from kalle_tpu_torch.infer import serve_loop
     from kalle_tpu_torch.infer.generate import generate
-    from kalle_tpu_torch.infer.serve_loop import ContinuousBatcher
-    from kalle_tpu_torch.models.lm import llasa
+    from kalle_tpu_torch.models.lm import llama, llasa
+    from kalle_tpu_torch.ops.kernels.qmm import fused_mlp_plain
 
     n, gated = 16, 8
+
+    def patched(module, name, fn, run):
+        """run() with module.name replaced by fn."""
+        kept = getattr(module, name)
+        setattr(module, name, fn)
+        try:
+            return run()
+        finally:
+            setattr(module, name, kept)
+
+    def plain_mlp(x, wg, wu, wd, reverse=False):
+        if reverse:  # F in reverse order: the same sums, another order
+            wg, wu = ({"q": w["q"].flip(1), "scale": w["scale"].flip(0)} for w in (wg, wu))
+            wd = {"q": wd["q"].flip(0), "scale": wd["scale"]}
+        return fused_mlp_plain(x, wg, wu, wd)
+
+    sideband = serve_loop.decode_attention_cached
+
+    def dropped_slot(*args, new_valid=None, **kw):
+        """K1 with row 0's new column not counted (the planted fault)."""
+        if new_valid is not None:
+            new_valid = new_valid.clone()
+            new_valid[0] = False
+        return sideband(*args, new_valid=new_valid, **kw)
 
     def generated(cfg, params, cache_len):
         out = []
@@ -1172,11 +1258,23 @@ def serve_cross_check(params_int8, prompts):
                                 greedy=True).means[0, :n].float().cpu().numpy())
         return out
 
+    def batched(cfg, params):
+        cb = serve_loop.ContinuousBatcher(params, cfg, batch_size=4, max_frames=n + 1,
+                                          prompt_buckets=SERVE_BUCKETS, greedy=True)
+        comps = {c.index: c.means for c in cb.run(prompts)}
+        got = [comps[i] for i in range(len(prompts))]
+        if any(a.shape != (n, 64) for a in got):
+            raise AssertionError(f"cross-check: shapes {[a.shape for a in got]}")
+        return got, cb.state.k.shape[-1]
+
     def curve(got, ref):
         """Per frame, the largest |difference| over the prompts, over the
         largest |mean| of the reference."""
         return np.max([np.abs(a - b).max(axis=1) / np.abs(b).max()
                        for a, b in zip(got, ref)], axis=0)
+
+    def fmt(c):
+        return " ".join(f"{x:.2e}" for x in c)
 
     f32 = LlasaConfig(llama=dataclasses.replace(LlamaConfig(), dtype="float32"),
                       latent_dim=64, audio_proj_dim=2048, head_variant="sigma")
@@ -1184,28 +1282,32 @@ def serve_cross_check(params_int8, prompts):
     failed = []
     for what, cfg, params in (("bf16 int8", flagship(), params_int8),
                               ("f32", f32, f32_params)):
-        cb = ContinuousBatcher(params, cfg, batch_size=4, max_frames=n + 1,
-                               prompt_buckets=SERVE_BUCKETS, greedy=True)
-        comps = {c.index: c.means for c in cb.run(prompts)}
-        got = [comps[i] for i in range(len(prompts))]
-        ref = generated(cfg, params, cb.state.k.shape[-1])
-        if any(a.shape != (n, 64) for a in got):
-            raise AssertionError(f"cross-check {what}: shapes {[a.shape for a in got]}")
+        got, cache_len = batched(cfg, params)
+        ref = generated(cfg, params, cache_len)
         err = curve(got, ref)
-        rerun = curve(generated(cfg, params, cb.state.k.shape[-1]), ref)
+        log(f"  serve cross-check {what}: batcher vs generate, 4 prompts, per frame max "
+            f"|diff| / max |generate|: {fmt(err)}")
         if what == "f32":
             bar = np.full(n, 1e-3)
         else:
-            bar = np.maximum(2e-2, 4 * np.maximum.accumulate(rerun))
+            plain = patched(llama, "fused_mlp", plain_mlp,
+                            lambda: generated(cfg, params, cache_len))
+            noise = curve(patched(llama, "fused_mlp",
+                                  lambda *a: plain_mlp(*a, reverse=True),
+                                  lambda: generated(cfg, params, cache_len)), plain)
+            bar = np.maximum(2e-2, 4 * np.maximum.accumulate(noise))
             bar[gated:] = np.inf
-        log(f"  serve cross-check {what}: batcher vs generate, 4 prompts, per frame max "
-            f"|diff| / max |generate|: {' '.join(f'{x:.2e}' for x in err)}")
-        log(f"    generate vs its rerun: {' '.join(f'{x:.2e}' for x in rerun)}")
-        log(f"    tolerance per frame: {' '.join(f'{x:.2e}' for x in bar)}; worst share "
-            f"of it {np.max(err / bar):.4g}")
+            log(f"    noise: generate through K3's plain version, F reversed vs as it is: "
+                f"{fmt(noise)}")
+        log(f"    tolerance per frame: {fmt(bar)}; worst share of it {np.max(err / bar):.4g}")
         if not (err <= bar).all():
             failed.append(what)
-        del cb
+        fault = curve(patched(serve_loop, "decode_attention_cached", dropped_slot,
+                              lambda: batched(cfg, params)[0]), ref)
+        log(f"    planted fault (row 0's new column dropped from K1's sideband): "
+            f"{fmt(fault)}; worst share of the bar {np.max(fault / bar):.4g}")
+        if (fault <= bar).all():
+            failed.append(f"{what}: the bar does not see the planted fault")
     del f32_params
     torch.cuda.empty_cache()
     if failed:

@@ -47,6 +47,32 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// mbarriers in shared memory (sm_90): init by one thread before a block
+// barrier; a phase completes when `count` arrivals have come; waiters pass
+// once the phase of the given parity has completed.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count));
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("{\n.reg .b64 st;\nmbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+// One arrival on bar once every cp.async this thread issued before has
+// landed (the init count counts it: .noinc).
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n@!p bra LAB_WAIT;\n}\n" ::"r"(
+          smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
 // ldmatrix: each lane gives the address of one 16-byte row of an 8x8 bf16
 // matrix (lanes 0-7 the first matrix, 8-15 the second, ...); lane l gets
 // elements (l / 4, 2 (l % 4) + {0, 1}) of each, or of its transpose (.trans).
@@ -80,6 +106,52 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&p);
+}
+
+// d0 += a.b0, d1 += a.b1: the two 16x8 B fragments of one ldmatrix.x4.
+__device__ __forceinline__ void mma_pair(float (&d0)[4], float (&d1)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[4]) {
+  const uint32_t b0[2] = {b[0], b[1]}, b1[2] = {b[2], b[3]};
+  mma_bf16(d0, a, b0);
+  mma_bf16(d1, a, b1);
+}
+
+// Two 8-column accumulator tiles -> the A fragment of one 16-deep step
+// (the m16n8 C layout of tiles 2kk, 2kk + 1 is the A layout), rounded.
+__device__ __forceinline__ void c_to_a(uint32_t (&a)[4], const float (&c0)[4],
+                                       const float (&c1)[4]) {
+  a[0] = pack_bf16(c0[0], c0[1]);
+  a[1] = pack_bf16(c0[2], c0[3]);
+  a[2] = pack_bf16(c1[0], c1[1]);
+  a[3] = pack_bf16(c1[2], c1[3]);
+}
+
+// The A fragment of rows row0 .. row0+15, columns k0 .. k0+15 of a
+// row-major bf16 tile in shared memory (row stride ld elements).
+__device__ __forceinline__ void a_frag_at(uint32_t (&a)[4], const bf16* S, int ld, int row0,
+                                          int k0) {
+  const int lane = threadIdx.x & 31;
+  ldsm_x4(a, S + (row0 + (lane & 15)) * ld + k0 + (lane >> 4) * 8);
+}
+
+// The B fragments of two 8-column tiles (columns n0 .. n0+15) for rows
+// k0 .. k0+15 of a row-major (k, n) bf16 tile in shared memory (row stride
+// ld elements): b[0..1] columns n0.., b[2..3] columns n0+8.. (mma_pair).
+__device__ __forceinline__ void b_frags_at(uint32_t (&b)[4], const bf16* S, int ld, int k0,
+                                           int n0) {
+  const int lane = threadIdx.x & 31;
+  ldsm_x4_t(b, S + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld + n0 + (lane >> 4) * 8);
+}
+
+// The card's SM count (132 where it cannot be read), read once.
+inline int num_sms() {
+  static const int n = [] {
+    int dev = 0, v = 132;
+    if (cudaGetDevice(&dev) == cudaSuccess)
+      cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
+    return v;
+  }();
+  return n;
 }
 
 // Raise a kernel's dynamic shared-memory limit above the 48 KB default.

@@ -326,8 +326,7 @@ __device__ __forceinline__ void store_tile(bf16* __restrict__ dst, const bf16* S
 // A warp's A fragments of rows warp*16 .. +16, columns kk*16 .. +16 of S.
 template <int HD>
 __device__ __forceinline__ void a_frag(uint32_t (&a)[4], const bf16* S, int kk) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  ldsm_x4(a, S + (warp * 16 + (lane & 15)) * Tile<HD>::LD + kk * 16 + (lane >> 4) * 8);
+  a_frag_at(a, S, Tile<HD>::LD, (threadIdx.x >> 5) * 16, kk * 16);
 }
 
 // A warp's 16-row accumulators times mul -> its rows of S as bf16.
@@ -342,24 +341,6 @@ __device__ __forceinline__ void frag_store(bf16* S, const float (&acc)[HD / 8][4
     *reinterpret_cast<uint32_t*>(S + (r + 8) * LD + c) =
         pack_bf16(acc[i][2] * mul, acc[i][3] * mul);
   }
-}
-
-// d0 += a.b0, d1 += a.b1: the two 16x8 B fragments of one ldmatrix.x4.
-__device__ __forceinline__ void mma_pair(float (&d0)[4], float (&d1)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[4]) {
-  const uint32_t b0[2] = {b[0], b[1]}, b1[2] = {b[2], b[3]};
-  mma_bf16(d0, a, b0);
-  mma_bf16(d1, a, b1);
-}
-
-// Two 8-column accumulator tiles -> the A fragment of one 16-deep step
-// (the m16n8 C layout of tiles 2kk, 2kk + 1 is the A layout), rounded.
-__device__ __forceinline__ void c_to_a(uint32_t (&a)[4], const float (&c0)[4],
-                                       const float (&c1)[4]) {
-  a[0] = pack_bf16(c0[0], c0[1]);
-  a[1] = pack_bf16(c0[2], c0[3]);
-  a[2] = pack_bf16(c1[0], c1[1]);
-  a[3] = pack_bf16(c1[2], c1[3]);
 }
 
 // Key tile `tile` of one KV head -> stage tile & 1 of the (K, V) ring by

@@ -4,12 +4,16 @@ Mirror kalle_tpu/ops/pallas/qmm.py:54 `qmm` and :114 `fused_mlp`. On CUDA
 tensors they launch `csrc/qmm.cu`: bf16 activations with int8 or bf16
 weights on the tensor cores, or f32 activations with int8 or f32 weights
 in full f32 (the mode small f32 configs reach), any number of rows M in
-one launch and one count a call. On CPU tensors they run the plain
-versions below, which repeat the kernels' arithmetic in PyTorch.
+one call and one count a call (K3's bf16 path is its MLP kernel and, when
+it runs more than one cluster, a small kernel that sums the clusters'
+partial outputs). Both read x as it is: the kernels zero the rows past M
+themselves. On CPU tensors they run the plain versions below, which
+repeat the kernels' arithmetic in PyTorch.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import ctypes
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -20,7 +24,8 @@ NAME_QMM = "qmm"
 NAME_MLP = "fused_mlp"
 _P, _I = _build.P, _build.I
 _SIGS = {"kt_qmm": [_P] * 4 + [_I] * 5 + [_P],
-         "kt_fused_mlp": [_P] * 9 + [_I] * 5 + [_P]}
+         "kt_fused_mlp": [_P] * 9 + [_I] * 5 + [_P],
+         "kt_fused_mlp_plan": [_I] * 5 + [_P]}
 # activation dtype -> the weight dtypes the kernels take with it
 _WEIGHTS = {torch.bfloat16: (torch.int8, torch.bfloat16),
             torch.float32: (torch.int8, torch.float32)}
@@ -67,20 +72,6 @@ def _takes(x: torch.Tensor, weights, shapes) -> bool:
                     for (w, s), shape in zip(weights, shapes)))
 
 
-def _pad_rows(x: torch.Tensor) -> torch.Tensor:
-    """K3's bf16 kernel reads x in 16-row fragments, each block up to 64
-    rows: zero rows up to a multiple of 16 (M <= 64) or of 64 (every block
-    of a larger M reads a whole 64-row tile). K2 stages x itself and zeroes
-    the rows past M, so it needs no padding."""
-    m = x.shape[0]
-    tile = 16 if m <= 64 else 64
-    if m % tile == 0:
-        return x
-    xp = torch.zeros((-(-m // tile) * tile, x.shape[1]), dtype=x.dtype, device=x.device)
-    xp[:m] = x
-    return xp
-
-
 def qmm(x: torch.Tensor, w: torch.Tensor,
         scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x (M, K) @ w (K, N) * scale (N,) -> (M, N) in x.dtype."""
@@ -119,15 +110,37 @@ def fused_mlp(x: torch.Tensor, wg, wu, wd) -> torch.Tensor:
                          + _build.describe(*tensors))
     m = x.shape[0]
     f32 = x.dtype == torch.float32
-    xp = x if f32 else _pad_rows(x)
-    # scratch: the f32 mode's h (M, F), else the (M, H) f32 accumulator
-    scratch = torch.empty((m, f if f32 else h), dtype=torch.float32, device=x.device)
+    w_int8 = gq.dtype == torch.int8
+    # scratch: the f32 mode's h (M, F), else the clusters' partial outputs
+    scratch = torch.empty(fused_mlp_plan(m, h, f, w_int8, f32)["scratch_floats"],
+                          dtype=torch.float32, device=x.device)
     out = torch.empty((m, h), dtype=x.dtype, device=x.device)
     lib = _build.load(NAME_QMM, _SIGS)
-    rc = lib.kt_fused_mlp(xp.data_ptr(), gq.data_ptr(), _build.ptr(gs), uq.data_ptr(),
+    rc = lib.kt_fused_mlp(x.data_ptr(), gq.data_ptr(), _build.ptr(gs), uq.data_ptr(),
                           _build.ptr(us), dq.data_ptr(), _build.ptr(ds),
                           scratch.data_ptr(), out.data_ptr(), m, h, f,
-                          int(gq.dtype == torch.int8), int(f32), _build.stream())
+                          int(w_int8), int(f32), _build.stream())
     _build.check(lib, rc, NAME_MLP)
     _build.count(NAME_MLP)
     return out
+
+
+_PLANS: Dict[tuple, Dict[str, int]] = {}
+
+
+def fused_mlp_plan(m: int, h: int, f: int, w_int8: bool = True,
+                   x_f32: bool = False) -> Dict[str, int]:
+    """How K3 runs x (m, h) through weights of FFN width f on the current
+    card: the f32 scratch it takes (floats), and for bf16 x the cluster
+    size, the clusters a 64-row tile and the ring's stages. Asked of the
+    kernel library once per shape and card, then cached."""
+    key = (m, h, f, bool(w_int8), bool(x_f32), torch.cuda.current_device())
+    plan = _PLANS.get(key)
+    if plan is None:
+        lib = _build.load(NAME_QMM, _SIGS)
+        out = (ctypes.c_int * 4)()
+        _build.check(lib, lib.kt_fused_mlp_plan(m, h, f, int(w_int8), int(x_f32), out),
+                     NAME_MLP)
+        plan = dict(zip(("scratch_floats", "cluster", "clusters", "stages"), out))
+        _PLANS[key] = plan
+    return plan

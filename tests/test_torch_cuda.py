@@ -3,7 +3,10 @@ small and ragged shapes the main path does not reach (C not a multiple of
 128, T not a multiple of the time tile, M not a multiple of 16 and above
 64, f32 and int8 caches, K1's sideband, K1 at 16 heads a group and hd 256,
 dense bf16 weights, K2 split over K at M 1..130, K2/K3 with f32
-activations, ConvNeXt widths outside the decoder's and mlp_ratio 3; flash
+activations, K3's tensor-core kernel at M 1..72 with int8 and bf16
+weights (reruns bit-identical), K4's tensor-core instances at C 16..512
+and T 1..300 (reruns bit-identical, no look-ahead), ConvNeXt widths
+outside the decoder's and mlp_ratio 3; flash
 attention at t 128 to 512 with fully masked rows, f32 and bf16, K5's,
 K6's and K7's tensor-core instances at every head dim, K6/K7 also at t 200
 and GQA groups 1, 4 and 8 with their dead rows exactly 0 and reruns
@@ -225,6 +228,61 @@ def test_convnext_block(g, c, t, ratio):
             u(2 * h, bound=c ** -0.5), u(1, h, c, bound=h ** -0.5), u(c, bound=h ** -0.5))
     x = torch.randn(2, t, c, generator=g, device="cuda").to(BF)
     _close(k4.convnext_block(x, *args), k4.convnext_block_plain(x, *args), 2e-2)
+
+
+@pytest.mark.parametrize("h,f", [(2048, 8192), (256, 512)])
+@pytest.mark.parametrize("int8", [True, False])
+@pytest.mark.parametrize("m", [1, 8, 13, 32, 64, 72])
+def test_fused_mlp_tensor_cores(g, m, int8, h, f):
+    """K3's bf16 tensor-core kernel at the flagship's widths (clusters of
+    blocks, a second kernel summing them) and at small ones, at the serving
+    batches, ragged row counts (rows past M zeroed in the kernel) and two
+    row tiles: 1e-2 relative, one launch counted a call, and a rerun
+    bit-identical (no atomics)."""
+    def weight(*shape):
+        w = torch.randn(*shape, generator=g, device="cuda") * 0.02
+        if not int8:
+            return w.to(BF)
+        s = w.abs().amax(0) / 127
+        return {"q": torch.round(w / s).to(torch.int8), "scale": s}
+
+    ws = weight(h, f), weight(h, f), weight(f, h)
+    x = torch.randn(m, h, generator=g, device="cuda").to(BF)
+    before = _build.launches().get(k23.NAME_MLP, 0)
+    got = k23.fused_mlp(x, *ws)
+    assert _build.launches().get(k23.NAME_MLP, 0) == before + 1
+    ref = k23.fused_mlp_plain(x, *ws)
+    assert got.shape == (m, h) and got.dtype == BF
+    assert float((got.float() - ref.float()).abs().max() / ref.float().abs().max()) < 1e-2
+    assert torch.equal(k23.fused_mlp(x, *ws), got)
+
+
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("t", [1, 7, 100, 300])
+@pytest.mark.parametrize("c", [16, 32, 64, 128, 256, 512])
+def test_convnext_block_tensor_cores(g, c, t, b):
+    """K4's tensor-core instances at every width they take (H = 2C): T 1
+    and 7 (shorter than a tile, 7 barely past the causal halo), 100 and 300
+    (ragged tiles, several tiles a row); 2e-2 abs + 2e-2 rel against the
+    plain version, one launch counted, a rerun bit-identical; at T 7,
+    changing x at t >= 5 leaves out[:, :5] bit-identical (no look-ahead)."""
+    h = 2 * c
+
+    def u(*shape, bound=1.0):
+        return ((torch.rand(*shape, generator=g, device="cuda") * 2 - 1) * bound).to(BF)
+
+    args = (u(c) + 1, u(7, 1, c, bound=0.4), u(c, bound=0.4), u(1, c, 2 * h, bound=c ** -0.5),
+            u(2 * h, bound=c ** -0.5), u(1, h, c, bound=h ** -0.5), u(c, bound=h ** -0.5))
+    x = torch.randn(b, t, c, generator=g, device="cuda").to(BF)
+    before = _build.launches().get(k4.NAME, 0)
+    got = k4.convnext_block(x, *args)
+    assert _build.launches().get(k4.NAME, 0) == before + 1
+    _close(got, k4.convnext_block_plain(x, *args), 2e-2)
+    assert torch.equal(k4.convnext_block(x, *args), got)
+    if t == 7:
+        x2 = x.clone()
+        x2[:, 5:] = torch.randn(b, 2, c, generator=g, device="cuda").to(BF)
+        assert torch.equal(k4.convnext_block(x2, *args)[:, :5], got[:, :5])
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(g):
