@@ -46,11 +46,17 @@ Phases (any failure exits nonzero and prints no result):
      exactly (128 - 1) * 3200 * 2 PCM bytes, with time to first audio and
      total seconds a request.
 
-Phase 1 fails if a bf16 instance of K3 or K4 (or K6/K7 at hd 64) spills.
+Phase 1 fails if a bf16 instance of K1, K3 or K4 (or K6/K7 at hd 64) spills.
 Phase 2 holds K3 at M 8, 32 and 72 (1e-2 relative) and K4 at the five
 decoder widths (2e-2 abs + rel), each rerun bit-identical, K3 beside a
 composed three-call yardstick and K4 width by width against its bound;
 the profiles of phases 3 and 5 print K3's and K4's device time.
+Phase 2 holds K1 at the main path's last decode step (rerun bit-identical),
+times it with every column valid against its bound over all of C, and
+holds its tensor-core kernel on the edge cases (a masked leading tile, a
+valid range inside one block's share, no valid key, left-pad holes, only
+the new column counted) at batch 1, 8 and 32 in both modes, each rerun
+bit-identical.
 Phase 2 also holds K5-K7 (flash attention forward, dq, dk/dv) against
 their plain versions at the flagship training shape (b 8, t 512, 32/8
 heads, hd 64, bf16; ragged pads, a left-padded row, a row with no valid
@@ -58,8 +64,8 @@ key) and at hd 128 (b 4, 16/4 heads), with K6's and K7's dead rows
 exactly 0 and their reruns bit-identical, beside SDPA's forward and its
 backward alone (the yardstick of K6 + K7), K1's sideband mode at phase 5's
 shapes (batch 8 and 32, cache 384, ragged rows, some rows' new column not
-counted), K2 at M 8, 32 and 72 (the kernels line keeps M 32), and, once
-each, the inputs that raised
+counted; reruns bit-identical), K2 at M 8, 32 and 72 (the kernels line
+keeps M 32), and, once each, the inputs that raised
 before C3's repair: K1 at 16 query heads a KV head and hd 256 in all three
 modes, K2/K3 with f32 activations, and the tiny f32 config with int8
 weights decoding on the card against the CPU. Launch counts: K1-K4 from
@@ -193,10 +199,10 @@ def ptxas_report(text: str):
 
 # kernels that must not spill: K6/K7 bf16 at hd 64, K3's bf16 instances
 # (int8 and bf16 weights, 8..64-row tiles) and its cluster sum, K4's
-# tensor-core instances
+# tensor-core instances, K1's tensor-core instances (tc::decode_mma)
 # (names demangled by c++filt, or mangled where it is missing)
 SPILL_FREE = (r"flash_d(q|kv)_mma(<64>|ILi64E)|k3::(mlp|sum)_kernel|k310(mlp|sum)_kernel"
-              r"|convnext_tc_kernel(<|ILi)")
+              r"|convnext_tc_kernel(<|ILi)|decode_mma")
 
 
 def phase_build():
@@ -210,8 +216,8 @@ def phase_build():
     for lib in sorted(_build.BUILD_DIR.glob("*.log")):
         for name, regs, spill in ptxas_report(lib.read_text()):
             log(f"  ptxas {lib.stem.split('-')[0]} {name}: {regs} registers, {spill}")
-            # K6's and K7's bf16 instances at the training head dim, and K3's
-            # and K4's bf16 tensor-core instances, must not spill
+            # K6's and K7's bf16 instances at the training head dim, and K1's,
+            # K3's and K4's bf16 tensor-core instances, must not spill
             if (re.search(SPILL_FREE, name)
                     and "0 bytes spill stores, 0 bytes spill loads" not in spill):
                 raise AssertionError(f"{name} spills registers: {spill}")
@@ -246,8 +252,14 @@ def _assert_close(name, got, ref, atol, rtol):
 
 
 def check_decode_attention(g):
+    """K1 at the main path's last decode step (batch 32, cache 256, 16
+    layers): against its plain version, rerun bit-identical, timed beside
+    the plain version and SDPA; the int8-cache instance (the first port's
+    kernel); the same step with every column valid, timed against its
+    bound over all of C (the design's gain apart from the skip's); and the
+    tensor-core kernel on the edge cases at batch 1, 8 and 32."""
     from kalle_tpu_torch.ops.kernels.decode_attention import (
-        decode_attention_cached, decode_attention_plain)
+        decode_attention_cached, decode_attention_plain, decode_attention_plan)
 
     L, B, C, nq, nkv, hd = 16, BATCH, 256, 32, 8, 64
     dev, bf = "cuda", torch.bfloat16
@@ -262,7 +274,10 @@ def check_decode_attention(g):
     ref = decode_attention_plain(q[7], kt, v, 7, mask)
     got = decode_attention_cached(q[7], kt, v, 7, mask)
     _assert_close("decode_attention", got, ref, 2e-2, 2e-2)
+    if not torch.equal(got, decode_attention_cached(q[7], kt, v, 7, mask)):
+        raise AssertionError("decode_attention: a rerun is not bit-identical")
     err = _max_err(got, ref)
+    plan = decode_attention_plan(B, nkv, nq // nkv, hd, C)
 
     # int8 cache variant: per-(token, head) absmax scales
     ks = kt.float().abs().amax(dim=3, keepdim=True).clamp_min(1e-8) / 127
@@ -274,6 +289,7 @@ def check_decode_attention(g):
     got8 = decode_attention_cached(q[7], kq, vq, 7, mask, ks, vs)
     _assert_close("decode_attention int8", got8, ref8, 2e-2, 2e-2)
     log(f"  decode_attention int8 cache: max_abs_err {_max_err(got8, ref8):.4g}")
+    del kq, vq, ks, vs
 
     # time over all 16 layers so each call finds its layer cold in L2
     kern = cuda_ms(each_layer(lambda i: decode_attention_cached(q[i], kt, v, i, mask), L), 64)
@@ -291,10 +307,59 @@ def check_decode_attention(g):
     nbytes = (n_valid * nkv * hd * 2 * 2          # K and V of the valid slots
               + 2 * B * nq * hd * 2 + B * C)      # q, out, mask
     flops = 4 * n_valid * nq * hd
+
+    # every column valid: the bound counts all of C
+    full = torch.ones_like(mask)
+    _assert_close("decode_attention fully valid", decode_attention_cached(q[7], kt, v, 7, full),
+                  decode_attention_plain(q[7], kt, v, 7, full), 2e-2, 2e-2)
+    full_ms = cuda_ms(each_layer(lambda i: decode_attention_cached(q[i], kt, v, i, full), L), 64)
+    fb_ms, fb_by = bound(B * C * nkv * hd * 2 * 2 + 2 * B * nq * hd * 2 + B * C,
+                         4 * B * C * nq * hd)
+    log(f"  decode_attention fully valid B={B} C={C}: kernel_ms {full_ms:.4f} bound_ms "
+        f"{fb_ms:.4f} ({fb_by}) cluster {plan['cluster']} stages {plan['stages']}")
+    del q, kt, v
+    torch.cuda.empty_cache()
+    check_decode_attention_edges()
     return dict(name="decode_attention", source="kalle_tpu_torch/csrc/decode_attention.cu",
                 replaces="kalle_tpu/ops/pallas/decode_attention.py:320",
                 max_abs_err=err, ms=kern, plain_ms=plain, library_ms=lib_ms,
-                work=(nbytes, flops))
+                work=(nbytes, flops),
+                note=f"cluster {plan['cluster']}, stages {plan['stages']}, rerun bit-identical")
+
+
+def check_decode_attention_edges():
+    """K1's tensor-core kernel at batch 1, 8 and 32 (2 layers, cache 256,
+    32 query / 8 KV heads, hd 64), base and sideband modes, on rows
+    cycling through `decode_probe.edge_case_mask`'s cases (a masked
+    leading tile, a valid range inside one block's share, no valid key,
+    left-pad holes, every column valid, only the new column counted):
+    against the plain version (2e-2 abs + 2e-2 rel), reruns bit-identical.
+    Its inputs come from a generator of its own, so the checks after it
+    draw what they drew before it existed."""
+    from kalle_tpu_torch.ops.kernels.decode_attention import (
+        decode_attention_cached, decode_attention_plain, decode_attention_plan)
+    from kalle_tpu_torch.ops.kernels.decode_probe import edge_case_mask
+
+    L, C, nq, nkv, hd = 2, 256, 32, 8, 64
+    g = torch.Generator(device="cuda").manual_seed(1)
+    errs = []
+    for B in (1, 8, 32):
+        q = torch.randn(B, nq, hd, generator=g, device="cuda").to(torch.bfloat16)
+        kt = torch.randn(L, B, nkv, hd, C, generator=g, device="cuda").to(torch.bfloat16)
+        v = torch.randn(L, B, nkv, C, hd, generator=g, device="cuda").to(torch.bfloat16)
+        kn, vn = (torch.randn(B, nkv, hd, generator=g, device="cuda").to(torch.bfloat16)
+                  for _ in range(2))
+        mask, live = edge_case_mask(B, C)
+        plan = decode_attention_plan(B, nkv, nq // nkv, hd, C)
+        for mode, kw in (("base", {}), ("sideband", dict(k_new=kn, v_new=vn, new_valid=live))):
+            got = decode_attention_cached(q, kt, v, 1, mask, **kw)
+            ref = decode_attention_plain(q, kt, v, 1, mask, **kw)
+            _assert_close(f"decode_attention edge cases B={B} {mode}", got, ref, 2e-2, 2e-2)
+            if not torch.equal(got, decode_attention_cached(q, kt, v, 1, mask, **kw)):
+                raise AssertionError(f"decode_attention edge cases B={B} {mode}: a rerun "
+                                     "is not bit-identical")
+            errs.append(f"B={B} {mode} (cluster {plan['cluster']}) {_max_err(got, ref):.3g}")
+    log("  decode_attention edge cases, reruns bit-identical, max_abs_err: " + "; ".join(errs))
 
 
 def check_decode_attention_sideband(g):
@@ -302,9 +367,10 @@ def check_decode_attention_sideband(g):
     and 32. Row r holds a left-padded prompt of 20..bucket ids in a bucket
     of 32, 64 or 128 slots, then 0..127 frames; this step's column goes to
     the slot after them, and about a quarter of the rows (and row 1) do not
-    count it. Returns the batch-32 row; batch 8 is logged."""
+    count it; each checked against the plain version, rerun bit-identical.
+    Returns the batch-32 row; batch 8 is logged."""
     from kalle_tpu_torch.ops.kernels.decode_attention import (
-        decode_attention_cached, decode_attention_plain)
+        decode_attention_cached, decode_attention_plain, decode_attention_plan)
 
     L, C, nq, nkv, hd = 16, SERVE_CACHE, 32, 8, 64
     dev, bf = "cuda", torch.bfloat16
@@ -336,7 +402,11 @@ def check_decode_attention_sideband(g):
 
         got, ref = kernel(7), plain(7)
         _assert_close(f"decode_attention_sideband B={B}", got, ref, 2e-2, 2e-2)
+        if not torch.equal(got, kernel(7)):
+            raise AssertionError(f"decode_attention_sideband B={B}: a rerun is not "
+                                 "bit-identical")
         err = _max_err(got, ref)
+        plan = decode_attention_plan(B, nkv, nq // nkv, hd, C)
         # SDPA computes the same function in one call over a cache with the
         # column written at each row's slot and counted where it is live
         rows = torch.arange(B, device=dev)
@@ -358,7 +428,8 @@ def check_decode_attention_sideband(g):
         b_ms, b_by = bound(nbytes, flops)
         log(f"  decode_attention_sideband B={B} C={C}: kernel_ms {k_ms:.4f} plain_ms "
             f"{p_ms:.4f} sdpa_ms {lib_ms:.4f} bound_ms {b_ms:.4f} ({b_by}) "
-            f"max_abs_err {err:.4g} (tolerance 2e-2 abs + 2e-2 rel)")
+            f"max_abs_err {err:.4g} (tolerance 2e-2 abs + 2e-2 rel) cluster "
+            f"{plan['cluster']} stages {plan['stages']}, rerun bit-identical")
         row = dict(name="decode_attention_sideband",
                    source="kalle_tpu_torch/csrc/decode_attention.cu",
                    replaces="kalle_tpu/ops/pallas/decode_attention.py:320",

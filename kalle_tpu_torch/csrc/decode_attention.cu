@@ -9,12 +9,63 @@
 // Bound on the H100: bytes. One step of one layer reads the layer's K and
 // V (B * nkv * C * hd elements each) once and does 4 flops per element read
 // — far below the ~295 flop/byte the card needs before compute matters.
+// Only the valid cache slots need reading: at the main path's decode
+// steps 40-60% of the C columns are masked (the cache is sized for the
+// last frame), at serving's cache of 384 about 70%.
 //
-// Design: one block of 256 threads per (batch row, KV head, chunk of up to
-// 8 query heads of the group) — 32 x 8 = 256 blocks at the flagship decode
-// shape (group 4: one chunk), about two per SM. A wider group (16 heads a
-// KV head, say) takes more chunks in the grid's y dimension; each block
-// streams its KV head's tiles for its own chunk. Head dims up to 128 take
+// Two kernels, chosen by dtype and head dim alone (kt_decode_attention):
+//
+// `tc::decode_mma<HD>`, bf16 q and cache, hd <= 128 (the main path and
+// serving): tensor cores, split over a thread-block cluster.
+//   - Grid (B * nkv, chunks of 8 query heads, S); the S blocks of one
+//     (row, KV head, chunk) form a cluster along z. S is the least power
+//     of two (up to 8) that gives 3 blocks an SM, no larger than leaves a
+//     tile a warp when every tile is valid, then halved until the card
+//     holds every cluster at once (cudaOccupancyMaxActiveClusters): 2 at
+//     batch 1 to 32 on caches of 256 and 384 (`decode_attention_plan`
+//     says the split of any shape).
+//   - Tiles of TC = 32 cache columns are the unit of the skip: each block
+//     reads its row's mask once (C bytes, a tile a lane of one warp), keeps
+//     each tile's columns as a word of bits and lists the tiles that hold a
+//     valid column, and takes its share of those in order (block r of S
+//     the r-th S-th). A row with no valid key (and, in the sideband mode,
+//     no counted new column) walks every tile instead, so it averages V
+//     uniformly over the C (+1) columns as the JAX kernel does. Skipping
+//     changes nothing else: a masked score gives p = exp(NEG_INF - m) = 0
+//     wherever the row has a valid key, and a leading masked tile is
+//     wiped by corr = 0 in the JAX kernel too.
+//   - 4 warps a block, each an independent stream with its own online
+//     softmax: warp w takes the block's tiles w, w + 4, ... Its K tile
+//     (hd rows strided by C, 64 bytes each) and V tile (one contiguous
+//     run) go into its own ring of shared-memory stages by 16-byte
+//     cp.async (columns past C and rows past hd zero-filled); a warp waits
+//     on its own copies and __syncwarp()s, with no block barrier in the
+//     loop. With one stage a warp (when no warp can get two tiles, or when
+//     a second stage would cost a second wave of clusters) the block's
+//     whole share, a tile a warp, is in flight before the first wait: the
+//     block's tile n + 1 loads while tile n is computed. With two, a warp's
+//     own tile n + 1 is in flight while its tile n is computed.
+//   - Scores S^T = K^T . Q^T by mma.sync m16n8k16 (bf16 in, f32 sums): the
+//     cache tile is the A operand (16 columns an M tile, ldmatrix.trans
+//     from the (hd, TC) stage), the chunk's query heads are N (8 wide, 4
+//     used at the flagship's group of 4), Q's B fragments stay in
+//     registers. Scale, mask and the running max and sum per head in f32
+//     registers (a lane holds two heads). O^T = V^T . P^T by mma.sync: V's
+//     stage is the A operand by ldmatrix.trans, P rounded to bf16 (as the
+//     JAX kernel's p.astype(v.dtype)) and moved from the score layout to
+//     the B layout by movmatrix.trans; the sum l uses the unrounded p.
+//   - Merges in a fixed order, no atomics, one launch: the block's four
+//     warps through shared memory, then each block pushes its (m, l, acc)
+//     into block 0's shared memory over the cluster (distributed shared
+//     memory, one cluster barrier); block 0 merges the S partials in rank
+//     order, adds the sideband column and writes the row. Reruns are
+//     bit-identical.
+//
+// `decode_attention_kernel`, the first port (f32 q, an int8 cache, hd
+// 129-256): one block of 256 threads per (batch row, KV head, chunk of up
+// to 8 query heads of the group) — a wider group (16 heads a KV head, say)
+// takes more chunks in the grid's y dimension; each block streams its KV
+// head's tiles for its own chunk. Head dims up to 128 take
 // tiles of 128 columns; up to 256, tiles of 64 (so an f32 K and V tile
 // still fit in shared memory: 2 x 256 x 64 x 4 bytes). The block reads
 // layer `li` of the full cache through strides (no gather copy), keeps the
@@ -30,16 +81,18 @@
 // scale on the score column, the V scale on the probability.
 // Masked columns score NEG_INF exactly as `ops.attention.mha` does, so a
 // row with no valid key averages V like the JAX paths.
-// Sideband mode (continuous-batching serving): the block reads the cache
-// BEFORE this step's write, and this step's K/V column (k_new, v_new
-// (B, nkv, hd)) joins each query head's online softmax after the last
-// tile: warp g scores it against its query row, rescales its m and l, and
-// every thread rescales its accumulators and adds p * v_new. A row whose
-// new_valid flag is clear scores the column NEG_INF, as a masked cache
-// column, so it drops out wherever the row has any valid key. The column
-// is one extra key, so the mode costs one more warp reduction a head.
+// Sideband mode (continuous-batching serving), in both kernels: the
+// kernel reads the cache BEFORE this step's write, and this step's K/V
+// column (k_new, v_new (B, nkv, hd)) joins each query head's online
+// softmax after the last tile, in f32: it is scored against the query
+// row, m and l are rescaled, the accumulators rescaled and p * v_new
+// added. A row whose new_valid flag is clear scores the column NEG_INF,
+// as a masked cache column, so it drops out wherever the row has any
+// valid key.
+
 #include "common.cuh"
 
+#include <cooperative_groups.h>
 #include <math_constants.h>
 
 namespace {
@@ -262,6 +315,480 @@ int launch(const void* q, const void* k, const void* v, const void* mask,
                                                      B, nkv, group, hd, C, stream);
 }
 
+
+// ------------------------------------------- tensor-core instance (bf16) ----
+namespace tc {
+
+constexpr int WARPS = 4, THREADS = WARPS * 32;
+constexpr int TC = 32;    // cache columns a tile: the unit of the skip and of a warp's step
+constexpr int MAXS = 8;   // blocks a cluster (the portable limit)
+constexpr int NH = 8;     // query heads a block: the mma's N
+
+template <int HD>
+struct Tile {
+  // K stage: HD rows (d) of TC columns, 80-byte rows (ldmatrix.trans of 8
+  // rows hits 8 distinct bank groups); V stage: TC rows of HD + 8
+  static constexpr int KLD = TC + 8, VLD = HD + 8;
+  static constexpr int K_ELEMS = HD * KLD;
+  static constexpr int STAGE = (HD * KLD + TC * VLD) * 2;  // bytes
+  // one partial (m, l of NH heads, then acc (NH, HD)), in floats
+  static constexpr int SLOT = 2 * NH + NH * HD;
+};
+
+// Dynamic shared memory: the warps' rings of nst stages (each reused for
+// its warp's partial at the end), block 0's inbox of S partials, the
+// sideband scores, then a word a tile: its columns' validity bits, and the
+// list of the tiles that hold a valid column (with its length).
+template <int HD>
+size_t smem_bytes(int S, int C, int nst) {
+  const int ntiles = (C + TC - 1) / TC;
+  return (size_t)WARPS * nst * Tile<HD>::STAGE +
+         ((size_t)S * Tile<HD>::SLOT + NH + 2 * ntiles + 1) * 4;
+}
+
+// An 8x8 bf16 matrix held one register a lane (lane l: row l/4, columns
+// 2(l%4) + {0,1}) -> its transpose, held the same way.
+__device__ __forceinline__ uint32_t movmatrix_t(uint32_t x) {
+  uint32_t y;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(y) : "r"(x));
+  return y;
+}
+
+// The j-th tile the block walks: the j-th listed, or tile j when the row
+// walks every tile.
+__device__ __forceinline__ int tile_at(const int* list, int j, bool all) {
+  return all ? j : list[j];
+}
+
+// One bit a byte of x (byte i of the 16 -> bit i): set where it is not 0.
+__device__ __forceinline__ uint32_t nonzero_bytes(uint4 x) {
+  const uint32_t w[4] = {x.x, x.y, x.z, x.w};
+  uint32_t r = 0;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) r |= (uint32_t)(((w[i / 4] >> (8 * (i % 4))) & 0xffu) != 0) << i;
+  return r;
+}
+
+// Columns c0 .. c0 + TC of K (rows d < hd, strided by C) and of V (one
+// contiguous run) -> one stage, by this warp: 16-byte cp.async where the
+// rows are 16-byte aligned (vk: C % 8 == 0; vv: hd % 8 == 0), else plain
+// loads. Columns at or past C and rows at or past hd are zero.
+template <int HD>
+__device__ __forceinline__ void load_tile(unsigned char* st, const bf16* __restrict__ kb,
+                                          const bf16* __restrict__ vb, int c0, int hd, int C,
+                                          bool vk, bool vv, int lane) {
+  using TL = Tile<HD>;
+  bf16* Ks = reinterpret_cast<bf16*>(st);
+  bf16* Vs = Ks + TL::K_ELEMS;
+  const bf16 zero = __float2bfloat16(0.f);
+  for (int i = lane; i < HD * (TC / 8); i += 32) {
+    const int d = i / (TC / 8), j = (i % (TC / 8)) * 8, c = c0 + j;
+    bf16* dst = Ks + d * TL::KLD + j;
+    const bf16* src = kb + (size_t)d * C + c;
+    if (vk) {
+      const bool live = d < hd && c < C;  // a copy is whole or past C
+      cp_async16(dst, live ? src : kb, live ? 16 : 0);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) dst[e] = d < hd && c + e < C ? src[e] : zero;
+    }
+  }
+  for (int i = lane; i < TC * (HD / 8); i += 32) {
+    const int r = i / (HD / 8), j = (i % (HD / 8)) * 8, c = c0 + r;
+    bf16* dst = Vs + r * TL::VLD + j;
+    const bf16* src = vb + (size_t)c * hd + j;
+    if (vv) {
+      const bool live = c < C && j < hd;
+      cp_async16(dst, live ? src : vb, live ? 16 : 0);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) dst[e] = c < C && j + e < hd ? src[e] : zero;
+    }
+  }
+}
+
+// Elements d and d + 1 of a bf16 row of n (zero at or past n) as one
+// register, d in the low half: one 32-bit read where the row's pairs are
+// aligned (n even), else two 16-bit reads.
+__device__ __forceinline__ uint32_t load_pair(const bf16* row, int d, int n, bool pairs) {
+  const unsigned short* r = reinterpret_cast<const unsigned short*>(row);
+  if (pairs) return d < n ? *reinterpret_cast<const uint32_t*>(r + d) : 0u;
+  const uint32_t lo = d < n ? r[d] : 0u, hi = d + 1 < n ? r[d + 1] : 0u;
+  return lo | hi << 16;
+}
+
+__device__ __forceinline__ float2 bf2_to_f2(uint32_t x) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x));
+}
+
+// One tile of one warp's stream (`valid`: its columns' mask bits):
+// scores, online softmax, O^T += V^T.P^T. Lane l holds heads h = 2(l%4) + {0,1}: m[j], its share of l[j], and
+// O^T's rows d = 16 md + l/4 (+8) of those heads in oacc[md].
+template <int HD>
+__device__ __forceinline__ void attend_tile(const unsigned char* st,
+                                            const uint32_t (&qf)[HD / 16][2],
+                                            uint32_t valid, int c0, int C,
+                                            float scale, float (&m)[2], float (&l)[2],
+                                            float (&oacc)[HD / 16][4], int lane) {
+  using TL = Tile<HD>;
+  const bf16* Ks = reinterpret_cast<const bf16*>(st);
+  const bf16* Vs = Ks + TL::K_ELEMS;
+  // S^T (TC columns x NH heads) = K^T . Q^T: M tiles of 16 columns
+  float s[TC / 16][4];
+#pragma unroll
+  for (int mc = 0; mc < TC / 16; ++mc) {
+    s[mc][0] = s[mc][1] = s[mc][2] = s[mc][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      uint32_t a[4];
+      ldsm_x4_t(a, Ks + (kk * 16 + (lane >> 4) * 8 + (lane & 7)) * TL::KLD + mc * 16 +
+                       ((lane >> 3) & 1) * 8);
+      mma_bf16(s[mc], a, qf[kk]);
+    }
+  }
+  // scale and mask (columns past C drop out: -inf), the tile's max a head
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int mc = 0; mc < TC / 16; ++mc)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int j = mc * 16 + (lane >> 2) + (e >> 1) * 8;
+      const float x =
+          c0 + j >= C ? -CUDART_INF_F : ((valid >> j) & 1u ? s[mc][e] * scale : NEG_INF);
+      s[mc][e] = x;
+      mx[e & 1] = fmaxf(mx[e & 1], x);
+    }
+  float corr[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+#pragma unroll
+    for (int o = 4; o < 32; o <<= 1) mx[j] = fmaxf(mx[j], __shfl_xor_sync(0xffffffffu, mx[j], o));
+    corr[j] = __expf(m[j] - mx[j]);
+    m[j] = mx[j];
+    l[j] *= corr[j];
+  }
+#pragma unroll
+  for (int md = 0; md < HD / 16; ++md) {
+    oacc[md][0] *= corr[0];
+    oacc[md][1] *= corr[1];
+    oacc[md][2] *= corr[0];
+    oacc[md][3] *= corr[1];
+  }
+  // p (f32 into l), rounded to bf16 and transposed into P^T's B fragments
+#pragma unroll
+  for (int mc = 0; mc < TC / 16; ++mc) {
+    float p[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      p[e] = __expf(s[mc][e] - m[e & 1]);
+      l[e & 1] += p[e];
+    }
+    const uint32_t bp[2] = {movmatrix_t(pack_bf16(p[0], p[1])),
+                            movmatrix_t(pack_bf16(p[2], p[3]))};
+#pragma unroll
+    for (int md = 0; md < HD / 16; ++md) {
+      uint32_t a[4];
+      ldsm_x4_t(a, Vs + (mc * 16 + (lane >> 4) * 8 + (lane & 7)) * TL::VLD + md * 16 +
+                       ((lane >> 3) & 1) * 8);
+      mma_bf16(oacc[md], a, bp);
+    }
+  }
+}
+
+template <int HD, int NST>
+__global__ void __launch_bounds__(THREADS)
+decode_mma(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+           const uint8_t* __restrict__ mask, const bf16* __restrict__ k_new,
+           const bf16* __restrict__ v_new, const uint8_t* __restrict__ new_valid,
+           bf16* __restrict__ out, int nkv, int group, int hd, int C) {
+  namespace cg = cooperative_groups;
+  using TL = Tile<HD>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  // this block has started: the others may push into its shared memory
+  // once they have waited on this arrival
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  const int S = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  float* inbox = reinterpret_cast<float*>(smem + WARPS * NST * TL::STAGE);  // (S, SLOT)
+  float* snew = inbox + S * TL::SLOT;                                          // (NH,)
+  const int ntiles = (C + TC - 1) / TC;
+  uint32_t* cbits = reinterpret_cast<uint32_t*>(snew + NH);  // (ntiles,) column bits
+  int* list = reinterpret_cast<int*>(cbits + ntiles);        // (ntiles,) valid tiles
+  int* n_valid = list + ntiles;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int bh = blockIdx.x, b = bh / nkv, g0 = blockIdx.y * NH;
+  const int ghd = min(NH, group - g0);
+  const float scale = 1.f / sqrtf((float)hd);
+  const bf16* qb = q + ((size_t)bh * group + g0) * hd;  // the chunk's ghd query rows
+  const bf16* kb = k + (size_t)bh * hd * C;              // (hd, C)
+  const bf16* vb = v + (size_t)bh * C * hd;              // (C, hd)
+  const uint8_t* mb = mask + (size_t)b * C;
+  const bool side = k_new != nullptr;
+
+  // 1. the reads that need nothing else, all issued before any is used:
+  // Q's B fragments (k = d, n = head; zero past hd and past the chunk),
+  // the sideband column's K at the same places, the row's mask
+  uint32_t qf[HD / 16][2], kn[HD / 16][2];
+  {
+    const int h = lane >> 2;
+    const bool pairs = hd % 2 == 0;  // two neighbouring d in one 32-bit read
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int d = kk * 16 + j * 8 + 2 * (lane & 3);
+        qf[kk][j] = h < ghd ? load_pair(qb + h * hd, d, hd, pairs) : 0u;
+        kn[kk][j] = side && rank == 0 ? load_pair(k_new + (size_t)bh * hd, d, hd, pairs) : 0u;
+      }
+  }
+  // warp 0: the row's mask a tile a lane -> each tile's column bits, and
+  // the tiles that hold a valid column listed in order
+  if (warp == 0) {
+    const bool vm = C % 16 == 0 && ((uintptr_t)mask & 15) == 0;
+    int count = 0;
+    for (int base = 0; base < ntiles; base += 32) {
+      const int t = base + lane, c0 = t * TC;
+      uint32_t cm = 0;
+      if (t < ntiles) {
+        if (vm && c0 + TC <= C) {
+#pragma unroll
+          for (int j = 0; j < TC; j += 16)
+            cm |= nonzero_bytes(__ldg(reinterpret_cast<const uint4*>(mb + c0 + j))) << j;
+        } else {
+          for (int c = c0; c < min(c0 + TC, C); ++c) cm |= (uint32_t)(mb[c] != 0) << (c - c0);
+        }
+        cbits[t] = cm;
+      }
+      const uint32_t word = __ballot_sync(0xffffffffu, cm != 0);
+      if (cm != 0) list[count + __popc(word & ((1u << lane) - 1))] = t;
+      count += __popc(word);
+    }
+    if (lane == 0) *n_valid = count;
+  }
+  // block 0: the sideband column's score a head (f32; the 4 lanes that
+  // hold a head's q sum their shares), NEG_INF where it does not count
+  if (side && rank == 0 && warp == 0) {
+    float x = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float2 a = bf2_to_f2(qf[kk][j]), c = bf2_to_f2(kn[kk][j]);
+        x += a.x * c.x + a.y * c.y;
+      }
+    x += __shfl_xor_sync(0xffffffffu, x, 1);
+    x += __shfl_xor_sync(0xffffffffu, x, 2);
+    if ((lane & 3) == 0) snew[lane >> 2] = new_valid[b] ? x * scale : NEG_INF;
+  }
+  __syncthreads();
+
+  // 2. this block's share of the valid tiles, and this warp's of that
+  int n = *n_valid;
+  const bool all = n == 0 && !(side && new_valid[b]);  // no valid key: walk every tile
+  if (all) n = ntiles;
+  const int hi = (rank + 1) * n / S, first = rank * n / S + warp;
+  const int n_w = first < hi ? (hi - first + WARPS - 1) / WARPS : 0;
+
+  // 3. the warp's stream through its ring
+  unsigned char* ring = smem + warp * NST * TL::STAGE;
+  const bool vk = C % 8 == 0 && ((uintptr_t)k & 15) == 0;
+  const bool vv = hd % 8 == 0 && ((uintptr_t)v & 15) == 0;
+#pragma unroll
+  for (int i = 0; i < NST; ++i) {
+    if (i < n_w)
+      load_tile<HD>(ring + i * TL::STAGE, kb, vb, tile_at(list, first + i * WARPS, all) * TC,
+                    hd, C, vk, vv, lane);
+    cp_async_commit();
+  }
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, oacc[HD / 16][4];
+#pragma unroll
+  for (int md = 0; md < HD / 16; ++md) oacc[md][0] = oacc[md][1] = oacc[md][2] = oacc[md][3] = 0.f;
+  for (int i = 0; i < n_w; ++i) {
+    cp_async_wait<NST - 1>();  // tile i landed (this lane's copies) ...
+    __syncwarp();              // ... and the warp's
+    unsigned char* st = ring + (i % NST) * TL::STAGE;
+    const int t = tile_at(list, first + i * WARPS, all);
+    attend_tile<HD>(st, qf, cbits[t], t * TC, C, scale, m, l, oacc, lane);
+    __syncwarp();  // the stage is free again
+    if (i + NST < n_w)
+      load_tile<HD>(st, kb, vb, tile_at(list, first + (i + NST) * WARPS, all) * TC, hd, C, vk,
+                    vv, lane);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+  __syncwarp();
+
+  // 4. the warp's partial -> its ring: m, l (summed over the lanes that
+  // share a head), acc
+  float* part = reinterpret_cast<float*>(ring);
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int o = 4; o < 32; o <<= 1) l[j] += __shfl_xor_sync(0xffffffffu, l[j], o);
+  if (lane < 4) {
+    part[2 * lane] = m[0];
+    part[2 * lane + 1] = m[1];
+    part[NH + 2 * lane] = l[0];
+    part[NH + 2 * lane + 1] = l[1];
+  }
+  {
+    float* pa = part + 2 * NH + 2 * (lane & 3) * HD + (lane >> 2);
+#pragma unroll
+    for (int md = 0; md < HD / 16; ++md) {
+      pa[md * 16] = oacc[md][0];
+      pa[HD + md * 16] = oacc[md][1];
+      pa[md * 16 + 8] = oacc[md][2];
+      pa[HD + md * 16 + 8] = oacc[md][3];
+    }
+  }
+  __syncthreads();
+
+  // 5. the block's partial (its warps in order) -> slot `rank` of block 0's inbox
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");  // every block started
+  float* dst = cluster.map_shared_rank(inbox, 0) + rank * TL::SLOT;
+  for (int i = threadIdx.x; i < ghd * hd; i += THREADS) {
+    const int h = i / hd, d = i % hd;
+    float mw = reinterpret_cast<const float*>(smem)[h];
+#pragma unroll
+    for (int w = 1; w < WARPS; ++w)
+      mw = fmaxf(mw, reinterpret_cast<const float*>(smem + w * NST * TL::STAGE)[h]);
+    float a = 0.f, lw = 0.f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+      const float* p = reinterpret_cast<const float*>(smem + w * NST * TL::STAGE);
+      const float f = __expf(p[h] - mw);
+      a += f * p[2 * NH + h * HD + d];
+      lw += f * p[NH + h];
+    }
+    dst[2 * NH + h * HD + d] = a;
+    if (d == 0) {
+      dst[h] = mw;
+      dst[NH + h] = lw;
+    }
+  }
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+  if (rank != 0) return;
+
+  // 6. block 0: the S partials in rank order, then the sideband column, then the row
+  for (int i = threadIdx.x; i < ghd * hd; i += THREADS) {
+    const int h = i / hd, d = i % hd;
+    float mr = inbox[h];
+    for (int r = 1; r < S; ++r) mr = fmaxf(mr, inbox[r * TL::SLOT + h]);
+    float a = 0.f, lr = 0.f;
+    for (int r = 0; r < S; ++r) {
+      const float* p = inbox + r * TL::SLOT;
+      const float f = __expf(p[h] - mr);
+      a += f * p[2 * NH + h * HD + d];
+      lr += f * p[NH + h];
+    }
+    if (side) {
+      const float sn = snew[h], m2 = fmaxf(mr, sn);
+      const float corr = __expf(mr - m2), p = __expf(sn - m2);
+      lr = lr * corr + p;
+      a = a * corr + p * __bfloat162float(v_new[(size_t)bh * hd + d]);
+    }
+    out[((size_t)bh * group + g0 + h) * hd + d] = __float2bfloat16(a / fmaxf(lr, 1e-30f));
+  }
+}
+
+// Once an instance: allow it all of an SM's shared memory.
+template <int HD, int NST>
+cudaError_t prepare() {
+  static const cudaError_t e = allow_smem(decode_mma<HD, NST>, 232448);
+  return e;
+}
+
+// How many clusters of S blocks (along z) the card holds at once, asked
+// once a size; 0 where it runs none.
+template <int HD, int NST>
+int active_clusters(int S, size_t smem) {
+  static int known[MAXS + 1] = {};  // 0: not asked yet; -1: none
+  if (known[S] == 0 && prepare<HD, NST>() == cudaSuccess) {
+    cudaLaunchConfig_t probe = {};
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = 1;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = S;
+    probe.gridDim = dim3(1, 1, S);
+    probe.blockDim = dim3(THREADS);
+    probe.dynamicSmemBytes = smem;
+    probe.attrs = attr;
+    probe.numAttrs = 1;
+    int n = 0;
+    if (cudaOccupancyMaxActiveClusters(&n, decode_mma<HD, NST>, &probe) != cudaSuccess) {
+      cudaGetLastError();
+      n = 0;
+    }
+    known[S] = n > 0 ? n : -1;
+  }
+  return known[S] > 0 ? known[S] : 0;
+}
+
+struct Plan {
+  int S, nst;
+  size_t smem;
+};
+
+// The launch for `clusters` (row, KV head, chunk) triples over a cache of
+// C. S: the least power of two that gives 3 blocks an SM, no larger than
+// leaves a tile a warp when every tile is valid, then halved until the
+// card holds every cluster at once. Stages: two a warp where a warp may
+// get two tiles or more and the card still holds every cluster at once
+// with them, else one (a block's share, up to a tile a warp, is then all
+// in flight before the first wait).
+template <int HD>
+Plan plan_for(int clusters, int C) {
+  const int ntiles = (C + TC - 1) / TC;
+  int S = 1;
+  while (S < MAXS && clusters * S < 3 * num_sms() && 2 * S * WARPS <= ntiles) S *= 2;
+  while (S > 1 && clusters > active_clusters<HD, 1>(S, smem_bytes<HD>(S, C, 1))) S /= 2;
+  const int per_warp = ((ntiles + S - 1) / S + WARPS - 1) / WARPS;
+  const int nst =
+      per_warp >= 2 && clusters <= active_clusters<HD, 2>(S, smem_bytes<HD>(S, C, 2)) ? 2 : 1;
+  return {S, nst, smem_bytes<HD>(S, C, nst)};
+}
+
+template <int HD, int NST>
+int launch_plan(const Plan& p, const void* q, const void* k, const void* v, const void* mask,
+                const void* kn, const void* vn, const void* nv, void* out, int B, int nkv,
+                int group, int hd, int C, cudaStream_t stream) {
+  const cudaError_t attr = prepare<HD, NST>();
+  if (attr != cudaSuccess) return (int)attr;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute la[1];
+  la[0].id = cudaLaunchAttributeClusterDimension;
+  la[0].val.clusterDim.x = 1;
+  la[0].val.clusterDim.y = 1;
+  la[0].val.clusterDim.z = p.S;
+  cfg.gridDim = dim3(B * nkv, (group + NH - 1) / NH, p.S);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = p.smem;
+  cfg.stream = stream;
+  cfg.attrs = la;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, decode_mma<HD, NST>, (const bf16*)q, (const bf16*)k, (const bf16*)v,
+      (const uint8_t*)mask, (const bf16*)kn, (const bf16*)vn, (const uint8_t*)nv, (bf16*)out,
+      nkv, group, hd, C);
+  return (int)(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+template <int HD>
+int launch(const void* q, const void* k, const void* v, const void* mask, const void* kn,
+           const void* vn, const void* nv, void* out, int B, int nkv, int group, int hd,
+           int C, cudaStream_t stream) {
+  const Plan p = plan_for<HD>(B * nkv * ((group + NH - 1) / NH), C);
+  return p.nst == 2 ? launch_plan<HD, 2>(p, q, k, v, mask, kn, vn, nv, out, B, nkv, group, hd,
+                                         C, stream)
+                    : launch_plan<HD, 1>(p, q, k, v, mask, kn, vn, nv, out, B, nkv, group, hd,
+                                         C, stream);
+}
+
+}  // namespace tc
+
 }  // namespace
 
 // q (B, nkv*group, hd), any group >= 1, hd <= 256; k, v point at layer li
@@ -270,6 +797,8 @@ int launch(const void* q, const void* k, const void* v, const void* mask,
 // (B, nkv, 1, C) f32 for an int8 cache, else null; k_new, v_new (B, nkv, hd)
 // in the cache's dtype and new_valid (B,) bytes for the sideband column,
 // else all three null (an int8 cache takes no sideband). dtype: 0 f32, 1 bf16.
+// bf16 with a bf16 cache at hd <= 128 runs tc::decode_mma, the rest the
+// first port's kernel.
 extern "C" int kt_decode_attention(const void* q, const void* k, const void* v,
                                    const void* mask, const void* k_scale,
                                    const void* v_scale, const void* k_new,
@@ -282,6 +811,12 @@ extern "C" int kt_decode_attention(const void* q, const void* k, const void* v,
       (k_new != nullptr && kv_int8))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 1 && !kv_int8 && hd <= 128) {
+    return hd <= 64 ? tc::launch<64>(q, k, v, mask, k_new, v_new, new_valid, out, B, nkv,
+                                     group, hd, C, s)
+                    : tc::launch<128>(q, k, v, mask, k_new, v_new, new_valid, out, B, nkv,
+                                      group, hd, C, s);
+  }
   if (dtype == 1) {
     return kv_int8 ? launch<bf16, int8_t, true>(q, k, v, mask, k_scale, v_scale, k_new, v_new,
                                                 new_valid, out, B, nkv, group, hd, C, s)
@@ -292,4 +827,18 @@ extern "C" int kt_decode_attention(const void* q, const void* k, const void* v,
                                                new_valid, out, B, nkv, group, hd, C, s)
                  : launch<float, float, false>(q, k, v, mask, k_scale, v_scale, k_new, v_new,
                                                new_valid, out, B, nkv, group, hd, C, s);
+}
+
+// What kt_decode_attention would launch for these shapes: plan[0] the
+// cluster size of tc::decode_mma (0: the first port's kernel runs),
+// plan[1] its ring stages a warp.
+extern "C" int kt_decode_attention_plan(int B, int nkv, int group, int hd, int C, int dtype,
+                                        int kv_int8, int* plan) {
+  plan[0] = plan[1] = 0;
+  if (!(dtype == 1 && !kv_int8 && hd >= 1 && hd <= 128 && group >= 1)) return 0;
+  const int clusters = B * nkv * ((group + tc::NH - 1) / tc::NH);
+  const tc::Plan p = hd <= 64 ? tc::plan_for<64>(clusters, C) : tc::plan_for<128>(clusters, C);
+  plan[0] = p.S;
+  plan[1] = p.nst;
+  return (int)cudaGetLastError();
 }

@@ -3,14 +3,19 @@
 `decode_attention_cached` mirrors kalle_tpu/ops/pallas/decode_attention.py
 :217, its serving sideband column included, and `decode_attention` (:330)
 its single-layer wrapper. On CUDA tensors it launches
-`csrc/decode_attention.cu`; on CPU tensors it runs `decode_attention_plain`,
-which repeats the kernel's arithmetic in PyTorch.
+`csrc/decode_attention.cu` (one launch a call): bf16 q with a bf16 cache at
+hd <= 128 runs the tensor-core kernel split over a thread-block cluster
+(`decode_attention_plan` says the split), the f32, int8-cache and hd > 128
+instances the first port's kernel; the C entry point chooses by dtype and
+hd alone. On CPU tensors it runs `decode_attention_plain`, which computes
+the same function in PyTorch in f32.
 
 Launches are counted under `decode_attention`, and under
 `decode_attention_sideband` for the sideband mode.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -20,7 +25,22 @@ from . import _build
 
 NAME = "decode_attention"
 NAME_SIDEBAND = "decode_attention_sideband"
-_SIGS = {"kt_decode_attention": [_build.P] * 10 + [_build.I] * 7 + [_build.P]}
+_SIGS = {"kt_decode_attention": [_build.P] * 10 + [_build.I] * 7 + [_build.P],
+         "kt_decode_attention_plan": [_build.I] * 7 + [_build.P]}
+
+
+def decode_attention_plan(b: int, nkv: int, group: int, hd: int, c: int,
+                          dtype: torch.dtype = torch.bfloat16, kv_int8: bool = False) -> dict:
+    """What a call on the card launches for these shapes: `cluster`, the
+    blocks that split each (row, KV head, chunk of 8 query heads) along
+    the cache in the tensor-core kernel (0: the first port's kernel runs),
+    and its ring `stages` a warp. Needs the card."""
+    plan = (ctypes.c_int * 2)()
+    lib = _build.load(NAME, _SIGS)
+    _build.check(lib, lib.kt_decode_attention_plan(b, nkv, group, hd, c,
+                                                   int(dtype == torch.bfloat16),
+                                                   int(kv_int8), plan), "decode_attention_plan")
+    return {"cluster": plan[0], "stages": plan[1]}
 
 
 def decode_attention_plain(q: torch.Tensor, k_full: torch.Tensor,

@@ -6,7 +6,9 @@ dense bf16 weights, K2 split over K at M 1..130, K2/K3 with f32
 activations, K3's tensor-core kernel at M 1..72 with int8 and bf16
 weights (reruns bit-identical), K4's tensor-core instances at C 16..512
 and T 1..300 (reruns bit-identical, no look-ahead), ConvNeXt widths
-outside the decoder's and mlp_ratio 3; flash
+outside the decoder's and mlp_ratio 3; K1's tensor-core kernel at batch 1, 8
+and 32 on its edge cases (reruns bit-identical) and at ragged C, hd and
+groups; flash
 attention at t 128 to 512 with fully masked rows, f32 and bf16, K5's,
 K6's and K7's tensor-core instances at every head dim, K6/K7 also at t 200
 and GQA groups 1, 4 and 8 with their dead rows exactly 0 and reruns
@@ -212,6 +214,68 @@ def test_decode_attention_wide_group_hd256(g, dtype, mode):
     assert _build.launches().get(name, 0) == before + 1
     _close(got, k1.decode_attention_plain(q, kt, v, 1, mask, **kw),
            2e-2 if dtype == BF else 1e-4)
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("mode", ["base", "sideband"])
+@pytest.mark.parametrize("b", [1, 8, 32])
+def test_decode_attention_tensor_cores(g, b, mode, hd):
+    """K1's tensor-core kernel at batch 1, 8 and 32 (the cluster split
+    active), cache 256, 32 query / 8 KV heads, bf16, rows cycling through
+    `decode_probe.edge_case_mask`'s cases (a masked leading tile, a valid
+    range inside one block's share, no valid key, left-pad holes, all
+    valid, only the new column): against the plain version, reruns
+    bit-identical, one launch a call."""
+    from kalle_tpu_torch.ops.kernels.decode_probe import edge_case_mask
+
+    L, nq, nkv, c = 2, 32, 8, 256
+    q = torch.randn(b, nq, hd, generator=g, device="cuda").to(BF)
+    kt = torch.randn(L, b, nkv, hd, c, generator=g, device="cuda").to(BF)
+    v = torch.randn(L, b, nkv, c, hd, generator=g, device="cuda").to(BF)
+    mask, live = edge_case_mask(b, c)
+    kw = {}
+    if mode == "sideband":
+        kn, vn = (torch.randn(b, nkv, hd, generator=g, device="cuda").to(BF) for _ in range(2))
+        kw = dict(k_new=kn, v_new=vn, new_valid=live)
+    assert k1.decode_attention_plan(b, nkv, nq // nkv, hd, c)["cluster"] >= 1
+    name = k1.NAME_SIDEBAND if mode == "sideband" else k1.NAME
+    before = _build.launches().get(name, 0)
+    got = k1.decode_attention_cached(q, kt, v, 1, mask, **kw)
+    again = k1.decode_attention_cached(q, kt, v, 1, mask, **kw)
+    assert _build.launches().get(name, 0) == before + 2
+    assert torch.equal(got, again)
+    _close(got, k1.decode_attention_plain(q, kt, v, 1, mask, **kw), 2e-2)
+
+
+@pytest.mark.parametrize("c,hd,nq,nkv", [(203, 64, 8, 2), (256, 40, 8, 2), (130, 36, 8, 2),
+                                         (300, 100, 4, 2), (256, 64, 32, 2), (96, 64, 3, 1),
+                                         (128, 16, 6, 2), (1000, 64, 8, 1), (203, 33, 8, 2)])
+@pytest.mark.parametrize("mode", ["base", "sideband"])
+def test_decode_attention_tensor_cores_ragged(g, c, hd, nq, nkv, mode):
+    """K1's tensor-core kernel where its copies are not whole: C not a
+    multiple of 8 (plain loads of K), hd not a multiple of 16 (zero-padded
+    to the mma's depth) or of 8 (plain loads of V) or odd (q read a
+    half-word at a time), hd 100 on the hd-128
+    instance, 16 query heads a KV head (two chunks of 8), groups of 3 and
+    1, a long cache; the edge cases' rows; f32 and int8 caches still take
+    the first port's kernel."""
+    from kalle_tpu_torch.ops.kernels.decode_probe import edge_case_mask
+
+    L, b = 2, 6
+    q = torch.randn(b, nq, hd, generator=g, device="cuda").to(BF)
+    kt = torch.randn(L, b, nkv, hd, c, generator=g, device="cuda").to(BF)
+    v = torch.randn(L, b, nkv, c, hd, generator=g, device="cuda").to(BF)
+    mask, live = edge_case_mask(b, c)
+    kw = {}
+    if mode == "sideband":
+        kn, vn = (torch.randn(b, nkv, hd, generator=g, device="cuda").to(BF) for _ in range(2))
+        kw = dict(k_new=kn, v_new=vn, new_valid=live)
+    assert k1.decode_attention_plan(b, nkv, nq // nkv, hd, c)["cluster"] >= 1
+    assert k1.decode_attention_plan(b, nkv, nq // nkv, hd, c, torch.float32)["cluster"] == 0
+    assert k1.decode_attention_plan(b, nkv, nq // nkv, hd, c, kv_int8=True)["cluster"] == 0
+    got = k1.decode_attention_cached(q, kt, v, 1, mask, **kw)
+    assert torch.equal(got, k1.decode_attention_cached(q, kt, v, 1, mask, **kw))
+    _close(got, k1.decode_attention_plain(q, kt, v, 1, mask, **kw), 2e-2)
 
 
 @pytest.mark.parametrize("c,t,ratio", [(16, 45, 2), (64, 100, 2), (128, 33, 2), (512, 70, 2),
