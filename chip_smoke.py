@@ -44,12 +44,26 @@ Phases (any failure exits nonzero and prints no result):
      frames) and the bf16 SigmaVAE: eight concurrent GET /tts clients,
      each body the wav header and
      exactly (128 - 1) * 3200 * 2 PCM bytes, with time to first audio and
-     total seconds a request.
+     total seconds a request;
+  6. InferTools at full width (phase 3's int8 Llasa, the default bf16
+     SigmaVAE): (a) infer_jsonl over 8 rows (texts of 20-120 byte ids,
+     sigma latents of 40-120 frames) at batch 8 and 128 frames, twice,
+     checking every caption, copysyn wav (T_i * 3200 samples) and gen wav
+     (127 * 3200) at 24 kHz, with wall seconds and RTF; (b) a 4 s 16 kHz
+     int16 reference through the demo's synthesize fn: resampled, encoded
+     in bf16 (K4 in the encoder's 10 blocks; encode ms), a 30-frame voice
+     prompt, 128 frames (wall seconds); (c) a small f32 model with int8
+     layer weights and a small f32 codec on the card against the CPU:
+     encode, greedy generate with the encoded prompt and an embed bias,
+     decode (1e-3); (d) `python -m kalle_tpu_torch.infer.cli` in its own
+     process on the card, a tiny int8 model, --limit 2 -m 8. Every step
+     checks K1-K4's launch counts exactly.
 
 Phase 1 fails if a bf16 instance of K1, K3 or K4 (or K6/K7 at hd 64) spills.
 Phase 2 holds K3 at M 8, 32 and 72 (1e-2 relative) and K4 at the five
-decoder widths (2e-2 abs + rel), each rerun bit-identical, K3 beside a
-composed three-call yardstick and K4 width by width against its bound;
+decoder widths and at the encoder's five shapes of a 4 s voice prompt
+(batch 1; 2e-2 abs + rel), each rerun bit-identical, K3 beside a
+composed three-call yardstick and K4 shape by shape against its bound;
 the profiles of phases 3 and 5 print K3's and K4's device time.
 Phase 2 holds K1 at the main path's last decode step (rerun bit-identical),
 times it with every column valid against its bound over all of C, and
@@ -68,9 +82,9 @@ counted; reruns bit-identical), K2 at M 8, 32 and 72 (the kernels line
 keeps M 32), and, once each, the inputs that raised
 before C3's repair: K1 at 16 query heads a KV head and hd 256 in all three
 modes, K2/K3 with f32 activations, and the tiny f32 config with int8
-weights decoding on the card against the CPU. Launch counts: K1-K4 from
-phase 3's run, K5-K7 from phase 4's, K1's sideband from phase 5's
-batch-32 run.
+weights decoding on the card against the CPU. Launch counts: K1-K3 from
+phase 3's run, K4 from phase 3's and phase 6's counted runs, K5-K7 from
+phase 4's, K1's sideband from phase 5's batch-32 run.
 
 Prints a `kernels` JSON line, the card line, and as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
@@ -105,6 +119,8 @@ TRAIN_B, TRAIN_T, TRAIN_A, TRAIN_STEPS = 8, 512, 2, 10
 # cache length (the largest bucket plus max_frames + 1, rounded up to 128)
 SERVE_REQS, SERVE_FRAMES, SERVE_BUCKETS = 64, 128, (16, 32, 64, 128)
 SERVE_CACHE = -(-(SERVE_BUCKETS[-1] + SERVE_FRAMES + 1) // 128) * 128
+# phase 6: jsonl rows, frames a generate call, the voice prompt's seconds and rate
+INFER_ROWS, INFER_FRAMES, PROMPT_S, PROMPT_SR = 8, 128, 4, 16000
 
 
 def log(*a):
@@ -572,43 +588,62 @@ def check_fused_mlp(g):
 
 # SigmaVAE decoder residual blocks at batch 32, 128 frames: (C, T)
 CONVNEXT_SHAPES = ((512, 128), (512, 1024), (256, 5120), (128, 25600), (64, 102400))
+# the encoder's residual blocks for a 4 s voice prompt at 24 kHz, batch 1:
+# (C, T) after each stage's strided downsampling (4, 4, 5, 5, 8)
+ENCODER_SHAPES = ((64, 24000), (128, 6000), (256, 1200), (512, 240), (512, 30))
 
 
 def check_convnext(g):
+    """K4 at the decoder's shapes (the kernels line's row) and at the
+    encoder's (printed as their own sum); the same bar at both. The
+    encoder's inputs come from a generator of their own, so the checks
+    after this one keep their inputs."""
     from kalle_tpu_torch.models.codecs import sigmavae
     from kalle_tpu_torch.ops.kernels.convnext_block import (
         convnext_block, convnext_block_plain)
 
     cfg = sigmavae.SigmaVAEConfig()
-    tot = dict(ms=0.0, plain_ms=0.0, err=0.0, nbytes=0, flops=0)
-    for c, t in CONVNEXT_SHAPES:
-        blk = sigmavae.init_params(dataclasses.replace(cfg, channels=(c, c), strides=(4,)),
-                                   g, "cuda")["decoder"]["stages"][0]["blocks"][0]
-        args = [a.to(torch.bfloat16) for a in (
-            blk["norm"], blk["dw"]["w"], blk["dw"]["b"], blk["up"]["w"], blk["up"]["b"],
-            blk["down"]["w"], blk["down"]["b"])]
-        x = torch.randn(BATCH, t, c, generator=g, device="cuda").to(torch.bfloat16)
-        got, ref = convnext_block(x, *args), convnext_block_plain(x, *args)
-        _assert_close(f"convnext_block C={c} T={t}", got, ref, 2e-2, 2e-2)
-        if not torch.equal(convnext_block(x, *args), got):
-            raise AssertionError(f"convnext_block C={c} T={t}: a rerun is not bit-identical")
-        iters = 20 if t <= 5120 else 5
-        k_ms = cuda_ms(lambda: convnext_block(x, *args), iters)
-        p_ms = cuda_ms(lambda: convnext_block_plain(x, *args), max(2, iters // 4))
-        err = _max_err(got, ref)
-        nbytes = 2 * BATCH * t * c * 2 + sum(a.numel() * 2 for a in args)
-        flops = BATCH * t * (12 * c * c + 14 * c)
-        b_ms, b_by = bound(nbytes, flops)
-        log(f"  convnext_block C={c} T={t}: kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} "
-            f"bound_ms {b_ms:.4f} ({b_by}, {k_ms / b_ms:.2f}x) max_abs_err {err:.4g} "
-            "(tolerance 2e-2 abs + 2e-2 rel, rerun bit-identical)")
-        tot["ms"] += k_ms
-        tot["plain_ms"] += p_ms
-        tot["err"] = max(tot["err"], err)
-        tot["nbytes"] += nbytes
-        tot["flops"] += flops
-        del x, got, ref
-        torch.cuda.empty_cache()
+    tots = {}
+    for where, batch, shapes, g in (
+            ("decoder", BATCH, CONVNEXT_SHAPES, g),
+            ("encoder", 1, ENCODER_SHAPES, torch.Generator(device="cuda").manual_seed(4))):
+        tot = tots[where] = dict(ms=0.0, plain_ms=0.0, err=0.0, nbytes=0, flops=0)
+        for c, t in shapes:
+            blk = sigmavae.init_params(dataclasses.replace(cfg, channels=(c, c), strides=(4,)),
+                                       g, "cuda")["decoder"]["stages"][0]["blocks"][0]
+            args = [a.to(torch.bfloat16) for a in (
+                blk["norm"], blk["dw"]["w"], blk["dw"]["b"], blk["up"]["w"], blk["up"]["b"],
+                blk["down"]["w"], blk["down"]["b"])]
+            x = torch.randn(batch, t, c, generator=g, device="cuda").to(torch.bfloat16)
+            what = f"convnext_block {where} B={batch} C={c} T={t}"
+            got, ref = convnext_block(x, *args), convnext_block_plain(x, *args)
+            _assert_close(what, got, ref, 2e-2, 2e-2)
+            if not torch.equal(convnext_block(x, *args), got):
+                raise AssertionError(f"{what}: a rerun is not bit-identical")
+            iters = 20 if batch * t <= 32 * 5120 else 5
+            k_ms = cuda_ms(lambda: convnext_block(x, *args), iters)
+            p_ms = cuda_ms(lambda: convnext_block_plain(x, *args), max(2, iters // 4))
+            err = _max_err(got, ref)
+            nbytes = 2 * batch * t * c * 2 + sum(a.numel() * 2 for a in args)
+            flops = batch * t * (12 * c * c + 14 * c)
+            b_ms, b_by = bound(nbytes, flops)
+            log(f"  {what}: kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} "
+                f"bound_ms {b_ms:.4f} ({b_by}, {k_ms / b_ms:.2f}x) max_abs_err {err:.4g} "
+                "(tolerance 2e-2 abs + 2e-2 rel, rerun bit-identical)")
+            tot["ms"] += k_ms
+            tot["plain_ms"] += p_ms
+            tot["err"] = max(tot["err"], err)
+            tot["nbytes"] += nbytes
+            tot["flops"] += flops
+            del x, got, ref
+            torch.cuda.empty_cache()
+    enc = tots["encoder"]
+    b_ms, b_by = bound(enc["nbytes"], enc["flops"])
+    log(f"  convnext_block encoder sum (one block at each of the 5 widths, batch 1, 4 s): "
+        f"kernel_ms {enc['ms']:.4f} plain_ms {enc['plain_ms']:.4f} bound_ms {b_ms:.4f} "
+        f"({b_by}, {enc['ms'] / b_ms:.2f}x) max_abs_err {enc['err']:.4g}")
+    tot = tots["decoder"]
+    tot["err"] = max(tot["err"], enc["err"])
     return dict(name="convnext_block", source="kalle_tpu_torch/csrc/convnext_block.cu",
                 replaces="kalle_tpu/ops/pallas/convnext_block.py:86",
                 max_abs_err=tot["err"], ms=tot["ms"], plain_ms=tot["plain_ms"],
@@ -1450,6 +1485,238 @@ def serve_http_check(params, tok, card: str):
     log("kernels launches (http) " + json.dumps(launches))
 
 
+# --------------------------------------------------------------- phase 6 ----
+
+K1_K4 = ("decode_attention", "qmm", "fused_mlp", "convnext_block")
+TINY_YAML = """project_name: tiny
+model:
+  latent_dim: 8
+  audio_proj_dim: 64
+  llama: {vocab_size: 265, hidden_size: 64, intermediate_size: 128, num_layers: 2,
+          num_heads: 4, num_kv_heads: 2, head_dim: 16, max_seq_len: 128, dtype: float32}
+"""
+
+
+def check_launches(what: str, got: dict, expect: dict) -> None:
+    """K1-K4's counts of one run against what the path implies, exactly."""
+    for name in K1_K4:
+        if got.get(name, 0) != expect.get(name, 0):
+            raise AssertionError(f"{what}: {name} launched {got.get(name, 0)} times, "
+                                 f"the path implies {expect.get(name, 0)}")
+    log(f"  {what}: launches " + json.dumps({k: got.get(k, 0) for k in K1_K4})
+        + " (as the path implies)")
+
+
+def phase_infer(card: str) -> int:
+    """InferTools at full width: infer_jsonl, a voice prompt through the
+    demo's synthesize fn, a small card-vs-CPU check, the CLI. Returns K4's
+    launches in the counted runs."""
+    from kalle_tpu_torch.data.tokens import ByteTokenizer
+    from kalle_tpu_torch.infer.pipeline import Codec, InferTools
+    from kalle_tpu_torch.ops.kernels import _build
+    from kalle_tpu_torch.serve.web import make_synthesize_fn
+    from kalle_tpu_torch.utils.audio import read_wav, resample_linear
+
+    log(f"# phase 6: InferTools at full width: infer_jsonl of {INFER_ROWS} rows, "
+        f"{INFER_FRAMES} frames, a {PROMPT_S} s voice prompt")
+    cfg = flagship()
+    L = cfg.llama.num_layers
+    params = flagship_int8(torch.Generator(device="cuda").manual_seed(0))  # phase 3's weights
+    codec = Codec.random_init("sigma", torch.Generator(device="cuda").manual_seed(6),
+                              "cuda").astype(torch.bfloat16)
+    blocks = len(codec.cfg.strides) * codec.cfg.blocks_per_stage  # an encode's or a decode's
+    hop = codec.samples_per_frame
+    # the sigma head never stops early: every generate call takes INFER_FRAMES steps
+    decode = {"decode_attention": L * INFER_FRAMES, "qmm": 4 * L * INFER_FRAMES,
+              "fused_mlp": L * INFER_FRAMES}
+    k4 = 0
+    rng = np.random.default_rng(6)
+    with tempfile.TemporaryDirectory() as root:
+        rows, frames = [], []
+        for i, text in enumerate(serve_texts(INFER_ROWS, rng)):
+            frames.append(int(rng.integers(40, 121)))
+            path = os.path.join(root, f"lat{i}.npy")
+            np.save(path, rng.normal(size=(1, frames[-1], 64)).astype(np.float32))
+            rows.append({"id": f"u{i}", "caption": text, "vae": path})
+        it = InferTools(cfg, params, ByteTokenizer(), codec, output_root=root,
+                        version="phase6", ckpt_name="random", timestamp=False)
+
+        # (a) the test set: one batch of 8 through one bucket, 8 copysyn decodes
+        expect = dict(decode, convnext_block=blocks * (INFER_ROWS + 1))
+        for run in range(2):  # the first warms this batch's shapes
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            files = it.infer_jsonl(rows, max_frames=INFER_FRAMES, batch_size=INFER_ROWS)
+            wall = time.perf_counter() - t0
+            check_launches(f"infer_jsonl run {run}", _build.launches(), expect)
+            k4 += expect["convnext_block"]
+        want = [f"u{i}---{kind}.wav" for i in range(INFER_ROWS) for kind in ("copysyn", "gen")]
+        if [os.path.basename(f) for f in files] != want:
+            raise AssertionError(f"infer_jsonl wrote {files}")
+        for i, n in enumerate(frames):
+            with open(os.path.join(it.output_dir, f"u{i}.txt")) as f:
+                if f.read() != rows[i]["caption"]:
+                    raise AssertionError(f"u{i}.txt does not hold the caption")
+            for kind, samples in (("copysyn", n * hop), ("gen", (INFER_FRAMES - 1) * hop)):
+                a, sr = read_wav(os.path.join(it.output_dir, f"u{i}---{kind}.wav"))
+                if sr != 24000 or a.shape != (1, samples) or not np.isfinite(a).all():
+                    raise AssertionError(f"u{i}---{kind}.wav: {sr} Hz {a.shape}, "
+                                         f"want 24000 Hz (1, {samples})")
+        audio_s = INFER_ROWS * (INFER_FRAMES - 1) * hop / 24000
+        log(f"infer_jsonl rows {INFER_ROWS} wall_s {wall:.4f} rtf {wall / audio_s:.6g} "
+            f"gen_audio_s {audio_s:.2f} (second run; copysyn decodes and wav writes "
+            f"included) card {card}")
+
+        # (b) a 4 s 16 kHz int16 reference: resample, bf16 encode (K4), synthesize
+        t = np.arange(PROMPT_S * PROMPT_SR) / PROMPT_SR
+        ref = (PROMPT_SR, (np.sin(2 * np.pi * 180 * t) * (0.3 + 0.2 * np.sin(3 * t)) * 32767
+                           + rng.normal(0, 300, t.size)).clip(-32768, 32767).astype(np.int16))
+        wav24 = resample_linear(ref[1][None].astype(np.float32) / 32768, PROMPT_SR, 24000)
+        n_prompt = wav24.shape[-1] // hop
+        codec.encode_audio(wav24[None])  # warm-up
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        for _ in range(ITERS):
+            z = codec.encode_audio(wav24[None])
+        enc_ms = (time.perf_counter() - t0) / ITERS * 1e3
+        check_launches(f"encode_audio x{ITERS}", _build.launches(),
+                       {"convnext_block": blocks * ITERS})
+        k4 += blocks * ITERS
+        if z.shape != (1, n_prompt, 64) or not np.isfinite(z).all():
+            raise AssertionError(f"encode_audio gave {z.shape}, want (1, {n_prompt}, 64)")
+        log(f"encode_audio {PROMPT_S} s prompt (bf16, K4 in {blocks} blocks): ms {enc_ms:.3f} "
+            f"frames {n_prompt} (host clock, H2D and D2H included) card {card}")
+
+        seen = []
+        synthesize = it.synthesize
+
+        def spy(text, max_frames=200, prompt_latents=None):
+            seen.append(None if prompt_latents is None else prompt_latents.shape)
+            return synthesize(text, max_frames=max_frames, prompt_latents=prompt_latents)
+
+        it.synthesize = spy
+        fn = make_synthesize_fn(it, max_frames=INFER_FRAMES)
+        for run in range(2):  # the first warms batch 1's shapes
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            sr, out = fn(ref, "", "a voice prompted test sentence", True)
+            wall_p = time.perf_counter() - t0
+            check_launches(f"voice-prompted synthesize run {run}", _build.launches(),
+                           dict(decode, convnext_block=2 * blocks))
+            k4 += 2 * blocks
+        if (seen != [(n_prompt, 64)] * 2 or sr != 24000 or out.dtype != np.int16
+                or out.shape != ((INFER_FRAMES - 1) * hop,)):
+            raise AssertionError(f"voice prompt {seen}, output {sr} Hz {out.dtype} {out.shape}")
+        log(f"synthesize with a voice prompt ({n_prompt} frames) wall_s {wall_p:.4f} "
+            f"rtf {wall_p / ((INFER_FRAMES - 1) * hop / 24000):.6g} (resample, encode, "
+            f"generate, decode; second run) card {card}")
+    del params
+    torch.cuda.empty_cache()
+    infer_reference()
+    infer_cli()
+    return k4
+
+
+def infer_reference():
+    """(c) A small f32 model with int8 layer weights and a small f32 codec,
+    on the card (kernels) and on the CPU (plain versions): encode, greedy
+    generate with the encoded prompt and an embed bias, decode (1e-3)."""
+    from kalle_tpu_torch.bridge import tree_map
+    from kalle_tpu_torch.core.config import LlamaConfig, LlasaConfig
+    from kalle_tpu_torch.infer.generate import generate
+    from kalle_tpu_torch.infer.pipeline import Codec
+    from kalle_tpu_torch.models.codecs import sigmavae
+    from kalle_tpu_torch.models.lm import llasa
+    from kalle_tpu_torch.ops.kernels import _build
+    from kalle_tpu_torch.ops.quant import quantize_llama_params
+
+    llama = LlamaConfig(vocab_size=300, hidden_size=256, intermediate_size=512, num_layers=2,
+                        num_heads=4, num_kv_heads=2, head_dim=64, dtype="float32")
+    cfg = LlasaConfig(llama=llama, latent_dim=64, audio_proj_dim=256)
+    params = quantize_llama_params(llasa.init_params(cfg, torch.Generator().manual_seed(0),
+                                                     "cpu"))
+    vcfg = sigmavae.SigmaVAEConfig(strides=(2, 4), channels=(64, 128))
+    codec = Codec.random_init("sigma", torch.Generator().manual_seed(1), "cpu", cfg=vcfg)
+    g = torch.Generator().manual_seed(2)
+    wav = 0.3 * torch.randn(2, 1, 40 * vcfg.hop, generator=g)
+    ids = torch.randint(0, 300, (2, 9), generator=g)
+    mask = torch.ones_like(ids)
+    mask[1, :3] = 0
+    bias = 0.1 * torch.randn(2, 256, generator=g)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        _build.reset_launches()
+        p = tree_map(lambda t: t.to(dev), params)
+        c = Codec("sigma", vcfg, tree_map(lambda t: t.to(dev), codec.params))
+        z = sigmavae.encode(c.params, vcfg, wav.to(dev))
+        res = generate(p, cfg, ids.to(dev), mask.to(dev), max_frames=8, greedy=True,
+                       prompt_latents=z, embed_bias=bias.to(dev))
+        out[dev] = (z.cpu(), res.means.cpu(), res.n_frames.cpu(), c.decode_latents(res.means))
+    L = llama.num_layers
+    check_launches("card vs CPU, small f32 model (card run)", _build.launches(),
+                   {"decode_attention": 8 * L, "qmm": 32 * L, "fused_mlp": 8 * L})
+    (zc, mc, nc, wc), (zg, mg, ng, wg) = out["cpu"], out["cuda"]
+    if not torch.equal(nc, ng):
+        raise AssertionError("n_frames differ between card and CPU")
+    errs = [_max_err(zg, zc), _max_err(mg, mc), float(np.abs(wg - wc).max())]
+    log(f"  card vs CPU (f32 encode, greedy prompted generate, decode) max_abs_err "
+        f"encode {errs[0]:.3g} latents {errs[1]:.3g} wav {errs[2]:.3g} (limit 1e-3)")
+    if max(errs) > 1e-3 or not np.isfinite(wg).all():
+        raise AssertionError("the card's inference path disagrees with the plain CPU path")
+
+
+def infer_cli():
+    """(d) `python -m kalle_tpu_torch.infer.cli` in a process of its own on
+    the default device (the card), a tiny model with int8 layer weights."""
+    from kalle_tpu_torch.core.checkpoint import save_params_npz
+    from kalle_tpu_torch.core.config import load_experiment_config
+    from kalle_tpu_torch.models.lm import llasa
+    from kalle_tpu_torch.ops.quant import quantize_llama_params
+    from kalle_tpu_torch.utils.audio import read_wav
+
+    with tempfile.TemporaryDirectory() as root:
+        yaml = os.path.join(root, "tiny.yaml")
+        with open(yaml, "w") as f:
+            f.write(TINY_YAML)
+        cfg = load_experiment_config(yaml).model
+        ckpt = os.path.join(root, "tiny_int8.npz")
+        save_params_npz(ckpt, quantize_llama_params(
+            llasa.init_params(cfg, torch.Generator().manual_seed(0), "cpu")))
+        rng = np.random.default_rng(7)
+        rows = []
+        for i in range(3):
+            lat = os.path.join(root, f"lat{i}.npy")
+            np.save(lat, rng.normal(size=(1, 5 + i, 8)).astype(np.float32))
+            rows.append(json.dumps({"id": f"t{i}", "caption": f"tiny row {i}", "vae": lat}))
+        meta = os.path.join(root, "meta.jsonl")
+        with open(meta, "w") as f:
+            f.write("\n".join(rows))
+        cmd = [sys.executable, "-m", "kalle_tpu_torch.infer.cli", "-c", yaml, "-i", meta,
+               "-o", os.path.join(root, "out"), "-p", ckpt, "--limit", "2", "-m", "8"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                              capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if proc.returncode:
+            raise AssertionError(f"infer.cli exited {proc.returncode}: {proc.stderr[-2000:]}")
+        lines = proc.stdout.splitlines()
+        wrote = [ln for ln in lines if ln.startswith("wrote ")]
+        if len(wrote) != 1 or not wrote[0].startswith("wrote 4 files to "):
+            raise AssertionError(f"infer.cli printed {lines}")
+        run_dir = wrote[0].removeprefix("wrote 4 files to ")
+        got = json.loads(lines[lines.index(wrote[0]) + 1].removeprefix("kernel launches "))
+        L = cfg.llama.num_layers
+        check_launches("infer.cli subprocess", got,
+                       {"decode_attention": 8 * L, "qmm": 32 * L, "fused_mlp": 8 * L})
+        for name, samples in (("t0---copysyn.wav", 5 * 3200), ("t1---copysyn.wav", 6 * 3200),
+                              ("t0---gen.wav", 7 * 3200), ("t1---gen.wav", 7 * 3200)):
+            a, sr = read_wav(os.path.join(run_dir, name))
+            if sr != 24000 or a.shape != (1, samples) or not np.isfinite(a).all():
+                raise AssertionError(f"infer.cli {name}: {sr} Hz {a.shape}")
+        log(f"  infer.cli subprocess on the card: {wrote[0]!r}, wall_s {wall:.2f} "
+            "(process start included)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1467,6 +1734,7 @@ def main() -> int:
         launches.update(phase_train(card, root))
     phase_train_reference()
     launches["decode_attention_sideband"] = phase_serve(card)["decode_attention_sideband"]
+    launches["convnext_block"] += phase_infer(card)
     for r in rows:
         r["launches"] = launches.get(r["name"], 0)
         r["route"] = "cuda"

@@ -5,7 +5,8 @@ A checkpoint holds the step, the params, the AdamW state (moments and
 per-parameter step counts) and the schedule's state, so a resumed run
 continues the uninterrupted one exactly. One file a step,
 `<dir>/step_<N>.pt`, written to a temporary name and renamed; the newest
-five are kept. Also the flat .npz export of a param tree.
+five are kept. Also the flat .npz export of a param tree, and the
+inference entry points' Llasa loader (`load_llasa_params`).
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ from typing import Any, Optional, Tuple
 import numpy as np
 import torch
 
-from ..bridge import params_to_numpy, tree_leaves, tree_map
+from ..bridge import params_from_jax, params_to_numpy, tree_leaves, tree_map
 
 _NAME = re.compile(r"^step_(\d+)\.pt$")
 MAX_TO_KEEP = 5
@@ -101,3 +102,23 @@ def load_params_npz(path: str) -> dict:
             node = node.setdefault(p, {})
         node[parts[-1]] = data[k]
     return tree
+
+
+def load_llasa_params(path: str, cfg, device="cuda", seed: int = 0) -> dict:
+    """The Llasa params of the inference entry points, on `device`: a
+    `save_params_npz` file (its leaves as saved: int8 weights stay int8),
+    or, for an empty `path`, a random f32 init seeded `seed`. A reference
+    `.pt` checkpoint needs the HF/Llasa state-dict converter, which is not
+    ported yet (ROADMAP.md, A9)."""
+    if not path:
+        from ..models.lm import llasa
+
+        print("WARNING: no checkpoint given — random init (smoke mode)")
+        return llasa.init_params(cfg, torch.Generator(device=device).manual_seed(seed), device)
+    if path.endswith(".npz"):
+        return params_from_jax(load_params_npz(path), device=device)
+    if path.endswith(".pt"):
+        raise NotImplementedError(
+            f"{path}: reference .pt Llasa checkpoints need models/lm/convert.py, which "
+            "is not ported yet (ROADMAP.md, A9); pass a .npz from save_params_npz")
+    raise ValueError(f"{path}: expected a .npz params file (or a .pt, not ported yet)")

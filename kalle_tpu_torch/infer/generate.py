@@ -1,5 +1,5 @@
 """KV-cached autoregressive latent generation (port of
-kalle_tpu/infer/generate.py:33-200).
+kalle_tpu/infer/generate.py).
 
 Prefill runs the left-padded prompts once through the cache; the decode
 loop then emits one latent frame per step for every row, with per-row done
@@ -64,12 +64,22 @@ def generate(
     max_frames: int = 200,
     cache_len: int = 0,
     end_kl_threshold: Optional[float] = None,
+    prompt_latents: Optional[torch.Tensor] = None,       # (b, tl, d) audio prompt
+    prompt_latents_mask: Optional[torch.Tensor] = None,  # (b, tl) 1 = real frame
+    embed_bias: Optional[torch.Tensor] = None,           # (b, h) per-frame conditioning
     greedy: bool = False,
 ) -> GenResult:
     """Batched TTS generation: prompt ids -> latent frames, on the device
     of `input_ids`. `generator` draws the sampling noise (a fresh one seeded
     0 when None). Prompts are left-padded so every row appends frames at
-    the same cache slot; RoPE positions are per-row local."""
+    the same cache slot; RoPE positions are per-row local.
+
+    An audio prompt (`prompt_latents`, e.g. a reference voice's encoder
+    means) goes through `audio_proj` after the text, masked by
+    `prompt_latents_mask`; a row's positions count its real text tokens and
+    prompt frames as one left-padded run, as in the JAX package. The
+    `embed_bias` is added to every prefill position (pads too) and to every
+    generated frame's input embed."""
     lcfg = cfg.llama
     dt = torch_dtype(lcfg.dtype)
     dev = input_ids.device
@@ -78,19 +88,34 @@ def generate(
     if generator is None and not greedy:
         generator = torch.Generator(device=dev).manual_seed(0)
 
-    cache_len = cache_len or (tp + max_frames)
+    tl = 0 if prompt_latents is None else prompt_latents.shape[1]
+    cache_len = cache_len or (tp + tl + max_frames)
     # rounded up to 128 as in the JAX package, whose kernel blocks the cache
     # by 128 (K1 takes any length; the rounding keeps the two caches alike)
     cache_len = -(-cache_len // 128) * 128
+    bias = None if embed_bias is None else embed_bias.to(dt)[:, None, :]
 
     # ---- prefill ----
     pmask = prompt_mask.bool()
     embeds = llama.embed_tokens(params["llama"], input_ids, lcfg) * pmask[..., None].to(dt)
-    n_pads = tp - pmask.sum(dim=1)  # left-padded: local position = slot - n_pads
-    positions = (torch.arange(tp, device=dev)[None, :] - n_pads[:, None]).clamp_min(0)
+    if prompt_latents is not None:
+        a_embed = llasa.audio_proj(params, prompt_latents, dt)
+        if prompt_latents_mask is None:
+            lmask = torch.ones((b, tl), dtype=torch.bool, device=dev)
+        else:
+            lmask = prompt_latents_mask.bool()
+            a_embed = a_embed * lmask[..., None].to(dt)
+        embeds = torch.cat([embeds, a_embed], dim=1)
+        pmask = torch.cat([pmask, lmask], dim=1)
+    if bias is not None:
+        embeds = embeds + bias
+    t_pre = embeds.shape[1]
+    # left-padded: local position = slot - n_pads
+    n_pads = t_pre - pmask.sum(dim=1)
+    positions = (torch.arange(t_pre, device=dev)[None, :] - n_pads[:, None]).clamp_min(0)
     cache = llama.KVCache.zeros(lcfg, b, cache_len, device=dev)
     valid = torch.zeros((b, cache_len), dtype=torch.bool, device=dev)
-    valid[:, :tp] = pmask
+    valid[:, :t_pre] = pmask
     hidden, cache = llama.forward_with_cache(params["llama"], lcfg, embeds, cache,
                                              attention_mask=valid, positions=positions)
     hidden = hidden[:, -1:, :]
@@ -121,6 +146,8 @@ def generate(
         done = done | ((kl < thres) & (i >= cfg.min_frames))
 
         a_embed = llasa.audio_proj(params, sample, dt)
+        if bias is not None:
+            a_embed = a_embed + bias
         valid[:, cache.length] = live
         hidden, cache = llama.forward_with_cache(
             params["llama"], lcfg, a_embed, cache, attention_mask=valid,

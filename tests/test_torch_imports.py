@@ -32,4 +32,5 @@ def test_scan_sees_the_package():
     names = {p.name for p in FILES}
     assert {"llama.py", "generate.py", "sigmavae.py", "chip_smoke.py", "flash_attention.py",
             "trainer.py", "datasets.py", "checkpoint.py", "serve_loop.py", "service.py",
-            "http.py", "web.py"} <= names
+            "http.py", "web.py", "audio.py", "pipeline.py", "cli.py", "batch_cli.py",
+            "app.py"} <= names
