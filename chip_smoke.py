@@ -57,7 +57,25 @@ Phases (any failure exits nonzero and prints no result):
      encode, greedy generate with the encoded prompt and an embed bias,
      decode (1e-3); (d) `python -m kalle_tpu_torch.infer.cli` in its own
      process on the card, a tiny int8 model, --limit 2 -m 8. Every step
-     checks K1-K4's launch counts exactly.
+     checks K1-K4's launch counts exactly;
+  7. closing the port at full width: (a) phase 3's weights as an f32 Llasa
+     exported to a reference-layout .pt and read back onto the card, every
+     leaf bit-equal; (f) prompt_fit on phase 6's encoded prompt, 3 steps at
+     lr 1e-6 (K5-K7 exactly 16 a step, s a step, peak memory); (b) a
+     Trainer warm-started from the .pt at phase 4's shape, 4 steps, a
+     checkpoint every 2 (2 kept), the eval-audio hook on a bf16 SigmaVAE:
+     params before step 1 equal the file's, steps 2 and 4 kept,
+     restore(step=2) equals the state saved then, every hook wav at its
+     length, finite, 24 kHz, seconds blocked in save beside the writer
+     thread's; (c) generate at bench shape with the fused decode layout
+     beside the unfused one (ms a step; K2 2·16·128, K3's fused mode and
+     K1 16·128 launches), K3's fused mode bit-identical to the unfused K3
+     at M 8/32/72 on the flagship's layer, K2 on wqkv against three
+     launches, a small f32 model's fused frames against its unfused ones
+     (1e-3); (d) the batcher on the fused params, 16 requests at batch 8,
+     and a small f32 fused batcher against its unfused one (1e-3); (e) int4
+     (group 128): 16 frames at batch 32 beside int8 (the plain group-wise
+     route), a small f32 int4 model card vs CPU (1e-3).
 
 Phase 1 fails if a bf16 instance of K1, K3 or K4 (or K6/K7 at hd 64) spills.
 Phase 2 holds K3 at M 8, 32 and 72 (1e-2 relative) and K4 at the five
@@ -82,9 +100,15 @@ counted; reruns bit-identical), K2 at M 8, 32 and 72 (the kernels line
 keeps M 32), and, once each, the inputs that raised
 before C3's repair: K1 at 16 query heads a KV head and hd 256 in all three
 modes, K2/K3 with f32 activations, and the tiny f32 config with int8
-weights decoding on the card against the CPU. Launch counts: K1-K3 from
+weights decoding on the card against the CPU. Phase 2 also holds the
+fused decode layout's K2 on wq|wk|wv (2048, 3072) in one launch and K3's
+fused mode (wg | wu as one (2048, 16384) matrix) at M 8, 32 and 72: K3's
+fused mode bit-identical to the unfused K3, K2's within bf16 tolerance of
+three launches, both reruns bit-identical, K2 beside `torch.matmul`. Launch counts: K1-K3 from
 phase 3's run, K4 from phase 3's and phase 6's counted runs, K5-K7 from
-phase 4's, K1's sideband from phase 5's batch-32 run.
+phase 4's, K1's sideband from phase 5's batch-32 run, each plus phase 7's
+counted runs; the fused layout's K2 and K3 rows from phase 7's fused
+generate runs.
 
 Prints a `kernels` JSON line, the card line, and as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
@@ -586,6 +610,96 @@ def check_fused_mlp(g):
     return rows[BATCH]
 
 
+def check_qmm_wqkv(g):
+    """K2 on the fused decode layout's wq|wk|wv (2048, 3072), one launch
+    a layer, at M 8, 32 (the kernels line's row) and 72: within 1e-2
+    relative of the plain version, a rerun bit-identical, and against the
+    three separate launches on the same weights (bf16 tolerance, the max
+    error printed); timed beside those three launches and `torch.matmul`
+    on the pre-dequantized bf16 (2048, 3072) (B7's yardstick)."""
+    from kalle_tpu_torch.ops.kernels.qmm import qmm, qmm_plain
+
+    L, H = 16, 2048
+    cols = (2048, 512, 512)
+    parts = [_int8_layers(g, L, H, n) for n in cols]
+    q = torch.cat([w for w, _ in parts], dim=2)
+    s = torch.cat([sc for _, sc in parts], dim=1)
+    deq = (q.float() * s[:, None]).to(torch.bfloat16)
+    xs = {M: torch.randn(M, H, generator=g, device="cuda").to(torch.bfloat16)
+          for M in (8, BATCH, 72)}
+    rows = {}
+    for M, x in xs.items():
+        got, ref = qmm(x, q[5], s[5]), qmm_plain(x, q[5], s[5])
+        if _rel_err(got, ref) > 1e-2:
+            raise AssertionError(f"qmm wqkv M={M}: relative error {_rel_err(got, ref):.4g}")
+        if not torch.equal(qmm(x, q[5], s[5]), got):
+            raise AssertionError(f"qmm wqkv M={M}: a rerun is not bit-identical")
+        three = torch.cat([qmm(x, w[5], sc[5]) for w, sc in parts], dim=1)
+        e3 = _max_err(got, three)
+        if not torch.allclose(got.float(), three.float(), atol=2e-2, rtol=2e-2):
+            raise AssertionError(f"qmm wqkv M={M}: one launch vs three, max abs err {e3:.4g}")
+        kern = cuda_ms(each_layer(lambda i: qmm(x, q[i], s[i]), L), 64)
+        sep = cuda_ms(each_layer(lambda i: [qmm(x, w[i], sc[i]) for w, sc in parts], L), 64)
+        plain = cuda_ms(each_layer(lambda i: qmm_plain(x, q[i], s[i]), L), 16)
+        lib = cuda_ms(each_layer(lambda i: torch.matmul(x, deq[i]), L), 64)
+        n = sum(cols)
+        rows[M] = dict(name="qmm_wqkv", source="kalle_tpu_torch/csrc/qmm.cu",
+                       replaces="kalle_tpu/ops/pallas/qmm.py:74", max_abs_err=_max_err(got, ref),
+                       ms=kern, plain_ms=plain, library_ms=lib,
+                       work=(H * n + n * 4 + M * H * 2 + M * n * 2, 2 * M * H * n),
+                       note=f"fused wq|wk|wv (2048, 3072), M={M}, one launch; three "
+                            f"launches {sep:.4f} ms; vs three max_abs_err {e3:.4g} "
+                            "(tolerance 1e-2 relative vs plain, 2e-2 vs three; rerun "
+                            "bit-identical)")
+    log_row(rows[8])
+    log_row(rows[72])
+    return rows[BATCH]
+
+
+def check_fused_mlp_gu(g):
+    """K3's fused mode (wg | wu as one (2048, 16384) matrix) at M 8, 32
+    (the kernels line's row) and 72: bit-identical to the unfused K3 on
+    the same weights, within 1e-2 relative of the plain version, a rerun
+    bit-identical; timed beside the unfused K3."""
+    from kalle_tpu_torch.ops.kernels.qmm import fused_mlp, fused_mlp_plain
+
+    L, H, F = 16, 2048, 8192
+    wg, wu, wd = (_int8_layers(g, L, *s) for s in ((H, F), (H, F), (F, H)))
+    gu = (torch.cat([wg[0], wu[0]], dim=2), torch.cat([wg[1], wu[1]], dim=1))
+
+    def fused(i):
+        return {"q": gu[0][i], "scale": gu[1][i]}, None, {"q": wd[0][i], "scale": wd[1][i]}
+
+    def split(i):
+        return [{"q": q[i], "scale": s[i]} for q, s in (wg, wu, wd)]
+
+    rows = {}
+    for M in (8, BATCH, 72):
+        x = torch.randn(M, H, generator=g, device="cuda").to(torch.bfloat16)
+        got = fused_mlp(x, *fused(5))
+        if not torch.equal(got, fused_mlp(x, *split(5))):
+            raise AssertionError(f"fused_mlp_gu M={M}: not bit-identical to the unfused K3")
+        if not torch.equal(fused_mlp(x, *fused(5)), got):
+            raise AssertionError(f"fused_mlp_gu M={M}: a rerun is not bit-identical")
+        ref = fused_mlp_plain(x, *fused(5))
+        if _rel_err(got, ref) > 1e-2:
+            raise AssertionError(f"fused_mlp_gu M={M}: relative error {_rel_err(got, ref):.4g}")
+        kern = cuda_ms(each_layer(lambda i: fused_mlp(x, *fused(i)), L), 64)
+        unfused = cuda_ms(each_layer(lambda i: fused_mlp(x, *split(i)), L), 64)
+        plain = cuda_ms(each_layer(lambda i: fused_mlp_plain(x, *fused(i)), L), 16)
+        rows[M] = dict(name="fused_mlp_gu", source="kalle_tpu_torch/csrc/qmm.cu",
+                       replaces="kalle_tpu/ops/pallas/qmm.py:151",
+                       max_abs_err=_max_err(got, ref), ms=kern, plain_ms=plain,
+                       library_ms=None,
+                       work=(3 * H * F + (2 * F + H) * 4 + 2 * M * H * 2, 3 * 2 * M * H * F),
+                       note=f"fused [wg | wu] (2048, 16384) + wd, M={M}; bit-identical to "
+                            f"the unfused K3 ({unfused:.4f} ms); tolerance 1e-2 relative, "
+                            "rerun bit-identical")
+    log_row(rows[8])
+    log_row(rows[72])
+    return rows[BATCH]
+
+
 # SigmaVAE decoder residual blocks at batch 32, 128 frames: (C, T)
 CONVNEXT_SHAPES = ((512, 128), (512, 1024), (256, 5120), (128, 25600), (64, 102400))
 # the encoder's residual blocks for a 4 s voice prompt at 24 kHz, batch 1:
@@ -903,6 +1017,12 @@ def phase_kernels():
         rows.extend(r if isinstance(r, list) else [r])
         torch.cuda.empty_cache()
     check_c3(g)
+    # the fused decode layout's K2 and K3 rows, from a generator of their
+    # own so that the checks above keep their inputs
+    g7 = torch.Generator(device="cuda").manual_seed(7)
+    for check in (check_qmm_wqkv, check_fused_mlp_gu):
+        rows.append(check(g7))
+        torch.cuda.empty_cache()
     for r in rows:
         log_row(r)
     return rows
@@ -1507,10 +1627,10 @@ def check_launches(what: str, got: dict, expect: dict) -> None:
         + " (as the path implies)")
 
 
-def phase_infer(card: str) -> int:
+def phase_infer(card: str):
     """InferTools at full width: infer_jsonl, a voice prompt through the
     demo's synthesize fn, a small card-vs-CPU check, the CLI. Returns K4's
-    launches in the counted runs."""
+    launches in the counted runs and the voice prompt's encoded latents."""
     from kalle_tpu_torch.data.tokens import ByteTokenizer
     from kalle_tpu_torch.infer.pipeline import Codec, InferTools
     from kalle_tpu_torch.ops.kernels import _build
@@ -1614,7 +1734,7 @@ def phase_infer(card: str) -> int:
     torch.cuda.empty_cache()
     infer_reference()
     infer_cli()
-    return k4
+    return k4, z
 
 
 def infer_reference():
@@ -1717,6 +1837,436 @@ def infer_cli():
             "(process start included)")
 
 
+# --------------------------------------------------------------- phase 7 ----
+
+# (b): optimizer steps, checkpoints kept; (e): int4 frames; (f): prompt_fit steps
+WARM_STEPS, WARM_KEEP, INT4_FRAMES, FIT_STEPS = 4, 2, 16, 3
+
+
+def train_model():
+    """Phase 4's model: the flagship's widths with f32 master weights and
+    bf16 compute, flash attention on."""
+    from kalle_tpu_torch.core.config import LlamaConfig, LlasaConfig
+
+    return LlasaConfig(llama=LlamaConfig(use_flash_attention=True), latent_dim=64,
+                       audio_proj_dim=2048, head_variant="sigma")
+
+
+def _leaves_equal(a, b) -> bool:
+    from kalle_tpu_torch.bridge import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(x.shape == y.shape and torch.equal(x, y.to(x.device))
+                                      for x, y in zip(la, lb))
+
+
+def phase_port_closure(card: str, prompt_z: np.ndarray) -> dict:
+    """Phase 7: the reference checkpoint round trip, warm-started training
+    with async checkpoints and the eval-audio hook, the fused decode layout
+    (K2 on wqkv, K3's fused mode) in generate and the batcher, int4 decode,
+    and prompt_fit at full width. Returns the launches of its counted runs."""
+    log("# phase 7: checkpoints, warm start, eval hook, fused decode, int4, prompt_fit")
+    counts: dict = {}
+    with tempfile.TemporaryDirectory() as root:
+        params, path = closure_checkpoint(card, root)
+        _add(counts, closure_prompt_fit(card, params, prompt_z))
+        torch.cuda.empty_cache()
+        _add(counts, closure_warm_start(card, root, path, params))
+        del params
+    torch.cuda.empty_cache()
+    _add(counts, closure_fused(card))
+    closure_int4(card)
+    return counts
+
+
+def _add(counts: dict, more: dict) -> None:
+    for k, v in more.items():
+        counts[k] = counts.get(k, 0) + v
+
+
+def closure_checkpoint(card: str, root: str):
+    """(a) Phase 3's weights as an f32 Llasa, exported to a reference-layout
+    .pt and read back onto the card: every leaf bit-equal."""
+    from kalle_tpu_torch.core.checkpoint import load_reference_llasa_checkpoint
+    from kalle_tpu_torch.models.lm import llasa
+    from kalle_tpu_torch.models.lm.convert import llasa_state_dict_from_params
+
+    cfg = train_model()
+    params = llasa.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    path = os.path.join(root, "epoch_1_step_0.pt")
+    t0 = time.perf_counter()
+    torch.save(llasa_state_dict_from_params(params, cfg), path)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = load_reference_llasa_checkpoint(path, cfg, "cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    if not _leaves_equal(loaded, params):
+        raise AssertionError("a leaf of the reference .pt read back differs from its source")
+    del loaded
+    log(f"  (a) reference .pt round trip: {os.path.getsize(path) / 1e9:.2f} GB, export + "
+        f"torch.save {export_s:.2f} s, load onto the card {load_s:.2f} s, every leaf "
+        f"bit-equal card {card}")
+    return params, path
+
+
+def closure_prompt_fit(card: str, params: dict, prompt_z: np.ndarray) -> dict:
+    """(f) prompt_fit at full width on phase 6's encoded 4 s prompt (sigma:
+    log-scale log 0.5), 32 text ids, 3 steps at lr 1e-6: finite losses and
+    K5-K7 exactly 16 a step each."""
+    from kalle_tpu_torch.infer.optim import prompt_fit
+    from kalle_tpu_torch.ops.kernels import _build
+
+    cfg = train_model()
+    mean = torch.from_numpy(prompt_z).to("cuda")
+    logs = torch.full_like(mean, math.log(cfg.sigma))
+    ids = torch.randint(0, 128255, (1, TEXT_LEN),
+                        generator=torch.Generator(device="cuda").manual_seed(5), device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    fitted, loss = prompt_fit(params, cfg, ids, mean, logs,
+                              torch.Generator(device="cuda").manual_seed(7), lr=1e-6,
+                              max_steps=FIT_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in _build.launches().items() if k.startswith("flash")}
+    L = cfg.llama.num_layers
+    check = {"flash_fwd": L * FIT_STEPS, "flash_bwd_dq": L * FIT_STEPS,
+             "flash_bwd_dkv": L * FIT_STEPS}
+    if launches != check:
+        raise AssertionError(f"prompt_fit launches {launches}, the path implies {check}")
+    if not math.isfinite(loss) or not all(torch.isfinite(p).all() for p in
+                                          (fitted["llama"]["embed"], fitted["audio_linear"]["w"])):
+        raise AssertionError(f"prompt_fit: loss {loss}")
+    log(f"prompt_fit steps {FIT_STEPS} s_per_step {wall / FIT_STEPS:.4f} last_loss {loss:.5f} "
+        f"peak_mem_gb {torch.cuda.max_memory_allocated() / 1e9:.2f} (prompt "
+        f"{tuple(mean.shape)}, {TEXT_LEN} text ids, padded to 128 for flash; the first "
+        f"step warms up) card {card}")
+    log("  (f) launches " + json.dumps(launches) + " (as the path implies)")
+    return launches
+
+
+def closure_warm_start(card: str, root: str, path: str, params: dict) -> dict:
+    """(b) Trainer.fit warm-started from the .pt at phase 4's shape: 4
+    steps, a checkpoint every 2 (2 kept), the eval-audio hook on a bf16
+    SigmaVAE every 2. The params before step 1 equal the file's; exactly
+    steps 2 and 4 are kept; restore(step=2) into a fresh state equals the
+    state saved at step 2; every hook wav has its length, is finite, at
+    24 kHz; K4 and K5-K7 launch exactly as the path implies. `params` are
+    (a)'s, bit-equal to the file's."""
+    from kalle_tpu_torch.bridge import tree_leaves
+    from kalle_tpu_torch.core.checkpoint import CheckpointManager
+    from kalle_tpu_torch.core.config import DataConfig, ExperimentConfig, TrainConfig
+    from kalle_tpu_torch.data.tokens import build_tokenizer
+    from kalle_tpu_torch.infer.pipeline import Codec
+    from kalle_tpu_torch.models.lm import llasa
+    from kalle_tpu_torch.ops.kernels import _build
+    from kalle_tpu_torch.train.eval_hook import make_eval_audio_hook
+    from kalle_tpu_torch.train.step import make_train_state
+    from kalle_tpu_torch.train.trainer import Trainer
+    from kalle_tpu_torch.utils.audio import read_wav
+
+    cfg = train_model()
+    meta = write_latents(root, TRAIN_B * TRAIN_A * WARM_STEPS)
+    exp = ExperimentConfig(
+        project_name="chip_smoke_warm", exp_dir=os.path.join(root, "exp"), model=cfg,
+        start_checkpoint=path,
+        train=TrainConfig(lr=5e-5, warmup_steps=2, total_steps=1000,
+                          gradient_accumulation_steps=TRAIN_A, end_loss_weight=0.002,
+                          log_interval=2, save_interval=2, seed=0),
+        data=DataConfig(meta_path=meta, batch_size=TRAIN_B, use_dynamic=False,
+                        num_workers=1, prefetch_size=4, length_buckets=(TRAIN_T,),
+                        max_length=TRAIN_T))
+    codec = Codec.random_init("sigma", torch.Generator(device="cuda").manual_seed(6),
+                              "cuda").astype(torch.bfloat16)
+    hook_dir = os.path.join(root, "eval_audios")
+    hook = make_eval_audio_hook(codec, hook_dir)
+    frames, saved = {}, {}
+
+    def spy(trainer, step, np_batch):
+        hook(trainer, step, np_batch)
+        frames[step] = int(np.asarray(np_batch["audio_mask"][0]).sum())
+        if step == 2:  # the state the step-2 checkpoint must hold (copies: AdamW's
+            # step counts live on the host and count on in place)
+            saved["params"] = [p.detach().to("cpu", copy=True)
+                               for p in tree_leaves(trainer.state.params)]
+            saved["opt"] = {i: {k: v.detach().to("cpu", copy=True) for k, v in st.items()}
+                            for i, st in trainer.state.optimizer.state_dict()["state"].items()}
+
+    t0 = time.perf_counter()
+    trainer = Trainer(exp, build_tokenizer(), eval_hook=spy, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    trainer.ckpt.max_to_keep = WARM_KEEP
+    if not _leaves_equal(trainer.state.params, params):
+        raise AssertionError("the warm-started params differ from the .pt's")
+    del params
+    saves = []
+    save = trainer.ckpt.save
+
+    def timed_save(step, state, wait=False):
+        t = time.perf_counter()
+        save(step, state, wait)
+        saves.append((step, wait, time.perf_counter() - t))
+
+    trainer.ckpt.save = timed_save
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    trainer.fit(max_steps=WARM_STEPS)
+    fit_s = time.perf_counter() - t0
+    launches = _build.launches()
+    L = cfg.llama.num_layers
+    hook_calls = WARM_STEPS // exp.train.log_interval
+    blocks = len(codec.cfg.strides) * codec.cfg.blocks_per_stage
+    expect = {"flash_fwd": L * TRAIN_A * WARM_STEPS + L * hook_calls,  # + the hook's forwards
+              "flash_bwd_dq": L * TRAIN_A * WARM_STEPS, "flash_bwd_dkv": L * TRAIN_A * WARM_STEPS,
+              "convnext_block": 2 * blocks * hook_calls}  # gen and gt decodes
+    for name, n in expect.items():
+        if launches.get(name, 0) != n:
+            raise AssertionError(f"warm-started fit: {name} launched {launches.get(name, 0)} "
+                                 f"times, the path implies {n}")
+    losses = [h["total_loss"] for h in trainer.history]
+    if len(losses) != hook_calls or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"warm-started fit losses {losses}")
+    steps = trainer.ckpt.steps()
+    if steps != [2, 4]:
+        raise AssertionError(f"checkpoints kept {steps}, want [2, 4]")
+    blocked = sum(t for _, _, t in saves)
+    log(f"warm_start fit steps {WARM_STEPS} fit_s {fit_s:.2f} init_s {init_s:.2f} (a 4.9 GB "
+        f".pt) save_blocked_s {blocked:.2f} writer_s {trainer.ckpt.write_s:.2f} (saves, "
+        "step / wait / seconds blocked: " + ", ".join(f"{s} / {w} / {t:.2f}" for s, w, t in
+                                                       saves)
+        + f"; the step-2 save writes while steps 3-4 run) losses {[round(x, 5) for x in losses]}"
+        f" card {card}")
+    log("  (b) launches " + json.dumps({k: launches.get(k, 0) for k in expect})
+        + " (as the path implies)")
+    hop = codec.samples_per_frame
+    for step in (2, 4):
+        for kind in ("gen", "gt"):
+            a, sr = read_wav(os.path.join(hook_dir, f"sample_{step}-{kind}.wav"))
+            if sr != 24000 or a.shape != (1, frames[step] * hop) or not np.isfinite(a).all():
+                raise AssertionError(f"sample_{step}-{kind}.wav: {sr} Hz {a.shape}, want "
+                                     f"(1, {frames[step] * hop})")
+    ckpt_dir = trainer.ckpt.directory
+    del trainer
+    torch.cuda.empty_cache()
+    fresh = make_train_state(llasa.init_params(cfg, torch.Generator(device="cuda")
+                                               .manual_seed(1), "cuda"), exp.train)
+    t0 = time.perf_counter()
+    fresh, at = CheckpointManager(ckpt_dir).restore(fresh, step=2)
+    restore_s = time.perf_counter() - t0
+    if at != 2 or fresh.step != 2 or not all(
+            torch.equal(p.detach().cpu(), q) for p, q in zip(tree_leaves(fresh.params),
+                                                              saved["params"])):
+        raise AssertionError("restore(step=2) does not give the params saved at step 2")
+    for i, st in fresh.optimizer.state_dict()["state"].items():
+        if not all(torch.equal(v.detach().cpu(), saved["opt"][i][k]) for k, v in st.items()):
+            raise AssertionError("restore(step=2) does not give the AdamW state of step 2")
+    log(f"  (b) hook wavs at steps 2 and 4 (gen, gt) at 24 kHz, {frames} frames; "
+        f"restore(step=2) into a fresh state in {restore_s:.1f} s: params and AdamW state "
+        "equal what was saved")
+    del fresh
+    torch.cuda.empty_cache()
+    return {k: launches.get(k, 0) for k in expect}
+
+
+def small_f32_int8():
+    """infer_reference's small f32 model, int8 layer weights, on the CPU."""
+    from kalle_tpu_torch.core.config import LlamaConfig, LlasaConfig
+    from kalle_tpu_torch.models.lm import llasa
+
+    llama = LlamaConfig(vocab_size=300, hidden_size=256, intermediate_size=512, num_layers=2,
+                        num_heads=4, num_kv_heads=2, head_dim=64, dtype="float32")
+    cfg = LlasaConfig(llama=llama, latent_dim=64, audio_proj_dim=256)
+    return cfg, llasa.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+
+
+def closure_fused(card: str) -> dict:
+    """(c) generate with the fused decode layout at bench shape, fused and
+    unfused in one call, with exact launch counts; K3's fused mode against
+    the unfused K3 on one layer at M 8/32/72 (bit-identical), K2 on wqkv
+    against three launches; the small f32 model's fused frames against its
+    unfused frames on the card (1e-3). (d) The batcher on the fused params:
+    16 requests at batch 8; the small f32 model's fused batcher against its
+    unfused batcher (1e-3)."""
+    from kalle_tpu_torch.bridge import tree_map
+    from kalle_tpu_torch.data.tokens import build_prompt_ids, build_tokenizer
+    from kalle_tpu_torch.infer.generate import generate
+    from kalle_tpu_torch.infer.serve_loop import ContinuousBatcher
+    from kalle_tpu_torch.models.lm.llama import layer_params
+    from kalle_tpu_torch.ops.kernels import _build
+    from kalle_tpu_torch.ops.kernels.qmm import fused_mlp, qmm
+    from kalle_tpu_torch.ops.quant import fuse_decode_params, quantize_llama_params
+
+    cfg = flagship()
+    L = cfg.llama.num_layers
+    params = flagship_int8(torch.Generator(device="cuda").manual_seed(0))
+    fused = fuse_decode_params(params)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    ids = torch.randint(0, 128255, (BATCH, TEXT_LEN), generator=g, device="cuda")
+    mask = torch.ones((BATCH, TEXT_LEN), dtype=torch.int32, device="cuda")
+
+    def run(p, seed):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        res = generate(p, cfg, ids, mask, gen, max_frames=MAX_FRAMES)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / (int(res.n_frames.max()) + 1) * 1e3
+        return res, step_ms, _build.launches()
+
+    run(params, 1)
+    run(fused, 1)  # warm-ups
+    ms = {"unfused": [], "fused": []}
+    fused_counts = None
+    for name in ("unfused", "fused", "fused", "unfused"):
+        res, step_ms, launches = run(fused if name == "fused" else params, 2)
+        ms[name].append(step_ms)
+        if not torch.isfinite(res.samples).all() or int(res.n_frames.min()) != MAX_FRAMES - 1:
+            raise AssertionError(f"{name} generate: bad frames")
+        if name == "fused":
+            expect = {"qmm": 2 * L * MAX_FRAMES, "fused_mlp_gu": L * MAX_FRAMES,
+                      "decode_attention": L * MAX_FRAMES, "fused_mlp": 0}
+            for k, n in expect.items():
+                if launches.get(k, 0) != n:
+                    raise AssertionError(f"fused generate: {k} launched "
+                                         f"{launches.get(k, 0)} times, the path implies {n}")
+            fused_counts = {k: launches.get(k, 0) for k in expect}
+    log(f"fused_decode ms_per_step fused {' / '.join(f'{x:.4f}' for x in ms['fused'])} "
+        f"unfused {' / '.join(f'{x:.4f}' for x in ms['unfused'])} (batch {BATCH}, "
+        f"{TEXT_LEN} text ids, {MAX_FRAMES} frames, prefill included; order unfused, fused, "
+        f"fused, unfused) card {card}")
+    log("  (c) fused generate launches " + json.dumps(fused_counts) + " (as the path implies)")
+
+    lp, flp = layer_params(params["llama"]["layers"])[5], layer_params(fused["llama"]["layers"])[5]
+    xg = torch.Generator(device="cuda").manual_seed(4)
+    for M in (8, BATCH, 72):
+        x = torch.randn(M, 2048, generator=xg, device="cuda").to(torch.bfloat16)
+        if not torch.equal(fused_mlp(x, flp["wgu"], None, flp["wd"]),
+                           fused_mlp(x, lp["wg"], lp["wu"], lp["wd"])):
+            raise AssertionError(f"K3 fused mode M={M}: not bit-identical to the unfused K3")
+    x = torch.randn(BATCH, 2048, generator=xg, device="cuda").to(torch.bfloat16)
+    one = qmm(x, flp["wqkv"]["q"], flp["wqkv"]["scale"])
+    three = torch.cat([qmm(x, lp[n]["q"], lp[n]["scale"]) for n in ("wq", "wk", "wv")], 1)
+    e3 = _max_err(one, three)
+    if not torch.allclose(one.float(), three.float(), atol=2e-2, rtol=2e-2):
+        raise AssertionError(f"K2 on wqkv vs three launches: max abs err {e3:.4g}")
+    log(f"  (c) K3 fused mode bit-identical to the unfused K3 at M 8/32/72 (flagship layer 5); "
+        f"K2 on wqkv vs three launches max_abs_err {e3:.4g} (bf16, limit 2e-2)")
+
+    scfg, sparams = small_f32_int8()
+    sparams = tree_map(lambda t: t.to("cuda"), quantize_llama_params(sparams))
+    sids = torch.randint(0, 300, (3, 9), generator=torch.Generator().manual_seed(2)).cuda()
+    smask = torch.ones_like(sids)
+    smask[1, :3] = 0
+    a = generate(sparams, scfg, sids, smask, max_frames=16, greedy=True)
+    b = generate(fuse_decode_params(sparams), scfg, sids, smask, max_frames=16, greedy=True)
+    e_small = _max_err(a.means, b.means)
+    if e_small > 1e-3 or not torch.equal(a.n_frames, b.n_frames):
+        raise AssertionError(f"small f32 model: fused vs unfused frames {e_small:.4g}")
+    log(f"  (c) small f32 model on the card, fused vs unfused greedy frames (16): max_abs_err "
+        f"{e_small:.3g} (limit 1e-3)")
+
+    # (d) the batcher on the fused params
+    tok = build_tokenizer()
+    prompts = [np.asarray(build_prompt_ids(tok, t))
+               for t in serve_texts(16, np.random.default_rng(0))]
+    cb = ContinuousBatcher(fused, cfg, batch_size=8, max_frames=SERVE_FRAMES,
+                           prompt_buckets=SERVE_BUCKETS, seed=0)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    comps = cb.run(prompts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _build.launches()
+    if sorted(c.index for c in comps) != list(range(16)) or not all(
+            c.n_frames == SERVE_FRAMES - 1 and np.isfinite(c.samples).all() for c in comps):
+        raise AssertionError("the fused batcher lost a request or gave bad frames")
+    steps = cb.step_count
+    expect = {"decode_attention_sideband": L * steps, "qmm": 2 * L * steps,
+              "fused_mlp_gu": L * steps, "fused_mlp": 0}
+    for k, n in expect.items():
+        if launches.get(k, 0) != n:
+            raise AssertionError(f"fused batcher: {k} launched {launches.get(k, 0)} times, "
+                                 f"the path implies {n}")
+    log(f"serve fused batch 8 requests 16 requests_per_s {16 / wall:.4f} ms_per_step "
+        f"{wall / steps * 1e3:.4f} decode_steps {steps} card {card}")
+    del cb
+    kw = dict(batch_size=2, max_frames=8, prompt_buckets=(16,), greedy=True)
+    sprompts = [np.random.default_rng(1).integers(1, 300, n).astype(np.int32) for n in (5, 11, 7)]
+    ref = {c.index: c for c in ContinuousBatcher(sparams, scfg, **kw).run(sprompts)}
+    got = {c.index: c for c in ContinuousBatcher(fuse_decode_params(sparams), scfg, **kw)
+           .run(sprompts)}
+    e_b = max(float(np.abs(got[i].means - ref[i].means).max()) for i in ref)
+    if e_b > 1e-3 or any(got[i].n_frames != ref[i].n_frames for i in ref):
+        raise AssertionError(f"small f32 model: fused vs unfused batcher {e_b:.4g}")
+    log(f"  (d) launches " + json.dumps({k: launches.get(k, 0) for k in expect})
+        + f" (as the path implies); small f32 fused vs unfused batcher max_abs_err {e_b:.3g} "
+          "(limit 1e-3)")
+    del params, fused
+    torch.cuda.empty_cache()
+    return fused_counts
+
+
+def closure_int4(card: str) -> None:
+    """(e) int4 (group 128) at full width: 16 frames at batch 32 through
+    generate beside int8; the group-wise matmuls take the plain route
+    (ops.quant.qmatmul: no kernel takes group-wise scales), attention K1.
+    The small f32 model with int4 weights on the card against the CPU
+    (1e-3)."""
+    from kalle_tpu_torch.bridge import tree_map
+    from kalle_tpu_torch.infer.generate import generate
+    from kalle_tpu_torch.models.lm import llasa
+    from kalle_tpu_torch.ops.kernels import _build
+    from kalle_tpu_torch.ops.quant import quantize_llama_params
+
+    cfg = flagship()
+    L = cfg.llama.num_layers
+    g = torch.Generator(device="cuda").manual_seed(0)
+    int4 = quantize_llama_params(llasa.init_params(cfg, g, "cuda"), bits=4, group=128)
+    int8 = flagship_int8(torch.Generator(device="cuda").manual_seed(0))
+    ids = torch.randint(0, 128255, (BATCH, TEXT_LEN),
+                        generator=torch.Generator(device="cuda").manual_seed(3), device="cuda")
+    mask = torch.ones((BATCH, TEXT_LEN), dtype=torch.int32, device="cuda")
+    ms = {}
+    for name, p in (("int4", int4), ("int8", int8), ("int4", int4), ("int8", int8)):
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        res = generate(p, cfg, ids, mask, torch.Generator(device="cuda").manual_seed(2),
+                       max_frames=INT4_FRAMES)
+        torch.cuda.synchronize()
+        ms[name] = (time.perf_counter() - t0) / INT4_FRAMES * 1e3  # the second run's
+        launches = _build.launches()
+        if not torch.isfinite(res.samples).all():
+            raise AssertionError(f"{name} generate: non-finite frames")
+        if name == "int4" and (launches.get("qmm", 0) or launches.get("fused_mlp", 0)
+                               or launches.get("decode_attention", 0) != L * INT4_FRAMES):
+            raise AssertionError(f"int4 generate launches {launches}: the group-wise "
+                                 "matmuls must take the plain route, attention K1")
+    log(f"int4 ms_per_step {ms['int4']:.4f} (route: plain group-wise qmatmul, f32 einsum; "
+        f"K1 attention) int8 ms_per_step {ms['int8']:.4f} (K2/K3) (batch {BATCH}, "
+        f"{INT4_FRAMES} frames, prefill included; int4 values stored a byte each) card {card}")
+    del int4, int8
+    torch.cuda.empty_cache()
+    scfg, sparams = small_f32_int8()
+    sparams = quantize_llama_params(sparams, bits=4, group=128)
+    sids = torch.randint(0, 300, (3, 9), generator=torch.Generator().manual_seed(2))
+    smask = torch.ones_like(sids)
+    smask[1, :3] = 0
+    out = {dev: generate(tree_map(lambda t: t.to(dev), sparams), scfg, sids.to(dev),
+                         smask.to(dev), max_frames=8, greedy=True) for dev in ("cpu", "cuda")}
+    err = _max_err(out["cuda"].means.cpu(), out["cpu"].means)
+    if err > 1e-3 or not torch.equal(out["cuda"].n_frames.cpu(), out["cpu"].n_frames):
+        raise AssertionError(f"small int4 model: card vs CPU {err:.4g}")
+    log(f"  (e) small f32 model with int4 weights, card vs CPU greedy frames max_abs_err "
+        f"{err:.3g} (limit 1e-3)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1734,7 +2284,14 @@ def main() -> int:
         launches.update(phase_train(card, root))
     phase_train_reference()
     launches["decode_attention_sideband"] = phase_serve(card)["decode_attention_sideband"]
-    launches["convnext_block"] += phase_infer(card)
+    k4, prompt_z = phase_infer(card)
+    launches["convnext_block"] += k4
+    p7 = phase_port_closure(card, prompt_z)
+    for name in ("decode_attention", "convnext_block", "flash_fwd", "flash_bwd_dq",
+                 "flash_bwd_dkv"):
+        launches[name] = launches.get(name, 0) + p7.get(name, 0)
+    # the fused layout's rows: K2 and K3's fused mode in phase 7's fused generate runs
+    launches["qmm_wqkv"], launches["fused_mlp_gu"] = p7["qmm"], p7["fused_mlp_gu"]
     for r in rows:
         r["launches"] = launches.get(r["name"], 0)
         r["route"] = "cuda"

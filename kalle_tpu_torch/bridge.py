@@ -6,7 +6,11 @@ across leaf by leaf with its structure unchanged:
   * Llama layers stay stacked on a leading L axis (`layers/wq` is
     (L, in, out), kalle_tpu/models/lm/llama.py:134-158);
   * int8 weights stay `{'q': int8 (L, in, out), 'scale': f32 (L, out)}`
-    dicts (kalle_tpu/ops/quant.py:74-106);
+    dicts (kalle_tpu/ops/quant.py:74-106); int4 weights keep their
+    group-wise `{'q', 'scale' (L, in // group, out)}` dicts, but torch has
+    no int4 dtype: a JAX int4 leaf (ml_dtypes `int4`) becomes an int8
+    tensor of the same values, and `params_to_numpy` turns the q of a
+    group-wise dict back into `int4` (ml_dtypes, imported only then);
   * the Llasa heads keep `audio_linear/{w,b}` and
     `distribution_linear/{w0,b0,w2,b2}` with (in, out) weights
     (kalle_tpu/models/lm/llasa.py:46-66);
@@ -31,6 +35,8 @@ def _leaf(a: np.ndarray, device, dtype) -> torch.Tensor:
     a = np.array(a, order="C")  # a writable copy: JAX hands out read-only views
     if a.dtype.name == "bfloat16":  # ml_dtypes bf16: reinterpret the bits
         t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    elif a.dtype.name == "int4":  # ml_dtypes int4: the same values, a byte each
+        t = torch.from_numpy(a.astype(np.int8))
     else:
         t = torch.from_numpy(a)
     if dtype is not None and t.is_floating_point():
@@ -51,12 +57,22 @@ def params_from_jax(tree: Any, device="cuda", dtype=None) -> Any:
 
 def params_to_numpy(tree: Any) -> Any:
     """The reverse of `params_from_jax`: torch leaves -> numpy arrays on the
-    host, the same structure. bf16 leaves become f32 (numpy has no bf16)."""
+    host, the same structure. bf16 leaves become f32 (numpy has no bf16);
+    the q of a group-wise (int4) quantized dict becomes ml_dtypes int4."""
     def leaf(t: torch.Tensor) -> np.ndarray:
         t = t.detach().cpu()
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
-    return tree_map(leaf, tree)
+    if (isinstance(tree, dict) and set(tree) == {"q", "scale"}
+            and tree["scale"].dim() == tree["q"].dim()):
+        import ml_dtypes
+
+        return {"q": leaf(tree["q"]).astype(ml_dtypes.int4), "scale": leaf(tree["scale"])}
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(params_to_numpy(v) for v in tree)
+    return leaf(tree)
 
 
 def tree_leaves(tree: Any) -> list:

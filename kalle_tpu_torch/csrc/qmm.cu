@@ -451,15 +451,15 @@ template <typename W, bool GLU>
 __global__ void __launch_bounds__(32 * ROWS)
 mm_kernel(const float* __restrict__ x, const W* __restrict__ w, const float* __restrict__ s,
           const W* __restrict__ w2, const float* __restrict__ s2, float* __restrict__ out,
-          int M, int K, int N) {
+          int M, int K, int N, int ldw) {
   const int n = blockIdx.x * 32 + threadIdx.x, m = blockIdx.y * ROWS + threadIdx.y;
   if (m >= M || n >= N) return;
   const float* xr = x + (size_t)m * K;
   float a = 0.f, b = 0.f;
   for (int k = 0; k < K; ++k) {
     const float xv = xr[k];
-    a = fmaf(xv, to_f(w[(size_t)k * N + n]), a);
-    if (GLU) b = fmaf(xv, to_f(w2[(size_t)k * N + n]), b);
+    a = fmaf(xv, to_f(w[(size_t)k * ldw + n]), a);
+    if (GLU) b = fmaf(xv, to_f(w2[(size_t)k * ldw + n]), b);
   }
   if (s) a *= s[n];
   if (GLU) {
@@ -471,10 +471,11 @@ mm_kernel(const float* __restrict__ x, const W* __restrict__ w, const float* __r
 
 template <typename W, bool GLU>
 cudaError_t launch(const float* x, const void* w, const void* s, const void* w2,
-                   const void* s2, float* out, int M, int K, int N, cudaStream_t stream) {
+                   const void* s2, float* out, int M, int K, int N, int ldw,
+                   cudaStream_t stream) {
   const dim3 grid((N + 31) / 32, (M + ROWS - 1) / ROWS);
   mm_kernel<W, GLU><<<grid, dim3(32, ROWS), 0, stream>>>(
-      x, (const W*)w, (const float*)s, (const W*)w2, (const float*)s2, out, M, K, N);
+      x, (const W*)w, (const float*)s, (const W*)w2, (const float*)s2, out, M, K, N, ldw);
   return cudaGetLastError();
 }
 
@@ -482,17 +483,17 @@ template <typename W>
 int qmm(const void* x, const void* w, const void* scale, void* out, int M, int K, int N,
         cudaStream_t s) {
   return (int)launch<W, false>((const float*)x, w, scale, nullptr, nullptr, (float*)out, M,
-                               K, N, s);
+                               K, N, N, s);
 }
 
 template <typename W>
 int mlp(const void* x, const void* wg, const void* gs, const void* wu, const void* us,
-        const void* wd, const void* ds, void* h, void* out, int M, int H, int F,
+        const void* wd, const void* ds, void* h, void* out, int M, int H, int F, int ldw,
         cudaStream_t s) {
-  cudaError_t e = launch<W, true>((const float*)x, wg, gs, wu, us, (float*)h, M, H, F, s);
+  cudaError_t e = launch<W, true>((const float*)x, wg, gs, wu, us, (float*)h, M, H, F, ldw, s);
   if (e != cudaSuccess) return (int)e;
   return (int)launch<W, false>((const float*)h, wd, ds, nullptr, nullptr, (float*)out, M, F,
-                               H, s);
+                               H, H, s);
 }
 
 }  // namespace f32mode
@@ -591,7 +592,7 @@ struct Cfg {
 template <typename W, int MT8>
 __device__ __forceinline__ void issue(int c, unsigned char* stages, const bf16* x,
                                       const W* wg, const W* wu, const W* wd, int M, int H,
-                                      int F, int m0, int f0, int nc1, int ks, int n_beg,
+                                      int ldw, int m0, int f0, int nc1, int ks, int n_beg,
                                       int nr, int r0) {
   using K = Cfg<W, MT8>;
   unsigned char* st = stages + (c % K::ST) * K::STAGE;
@@ -600,8 +601,8 @@ __device__ __forceinline__ void issue(int c, unsigned char* stages, const bf16* 
   if (c < nc1) {
     const int k = c * CK;
     copy_x_rows<K::MP, K::CT>(reinterpret_cast<bf16*>(st), x, M, H, m0, k, t);
-    copy_w_tile<W, K::WLD, K::CT>(ws, wg + (size_t)k * F + f0, F, CK, FT, t);
-    copy_w_tile<W, K::WLD, K::CT>(ws + FT, wu + (size_t)k * F + f0, F, CK, FT, t);
+    copy_w_tile<W, K::WLD, K::CT>(ws, wg + (size_t)k * ldw + f0, ldw, CK, FT, t);
+    copy_w_tile<W, K::WLD, K::CT>(ws + FT, wu + (size_t)k * ldw + f0, ldw, CK, FT, t);
   } else {
     const int c2 = c - nc1, kpc = ks * FT / K::CK2, cb = c2 / kpc, kc = c2 % kpc;
     copy_w_tile<W, K::WLD2, K::CT>(
@@ -622,7 +623,7 @@ template <typename W, int MT8>
 __global__ void __launch_bounds__(Cfg<W, MT8>::THREADS, 1)
 mlp_kernel(const bf16* __restrict__ x, const W* __restrict__ wg, const float* __restrict__ gs,
            const W* __restrict__ wu, const float* __restrict__ us, const W* __restrict__ wd,
-           float* __restrict__ part, int M, int H, int F) {
+           float* __restrict__ part, int M, int H, int ldw) {
   namespace cg = cooperative_groups;
   using K = Cfg<W, MT8>;
   constexpr int MP = K::MP, ST = K::ST, KG = K::KG;
@@ -669,7 +670,7 @@ mlp_kernel(const bf16* __restrict__ x, const W* __restrict__ wg, const float* __
       cp_async16(sc_s + (lane >> 4) * FT + (lane & 15) * 4, src + f0 + (lane & 15) * 4);
     for (int c = 0; c < nc; ++c) {
       mbar_wait(empty + c % ST, (c / ST & 1) ^ 1);  // the stage's last chunk was read
-      issue<W, MT8>(c, stages, x, wg, wu, wd, M, H, F, m0, f0, nc1, ks, n_beg, nr, r0);
+      issue<W, MT8>(c, stages, x, wg, wu, wd, M, H, ldw, m0, f0, nc1, ks, n_beg, nr, r0);
       cp_async_arrive(full + c % ST);
     }
     cp_async_commit();
@@ -831,7 +832,7 @@ int plan(int H, int F, Plan* p) {
 
 template <typename W, int MT8>
 int launch(const void* x, const void* wg, const void* gs, const void* wu, const void* us,
-           const void* wd, const void* ds, void* part, void* out, int M, int H, int F,
+           const void* wd, const void* ds, void* part, void* out, int M, int H, int F, int ldw,
            cudaStream_t stream) {
   Plan p;
   int e = plan<W, MT8>(H, F, &p);
@@ -850,7 +851,7 @@ int launch(const void* x, const void* wg, const void* gs, const void* wu, const 
   cfg.numAttrs = 1;
   cudaError_t err = cudaLaunchKernelEx(&cfg, mlp_kernel<W, MT8>, (const bf16*)x, (const W*)wg,
                                        (const float*)gs, (const W*)wu, (const float*)us,
-                                       (const W*)wd, (float*)part, M, H, F);
+                                       (const W*)wd, (float*)part, M, H, ldw);
   if (err == cudaSuccess) err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   sum_kernel<<<(M * H / 4 + SUM_OUT - 1) / SUM_OUT, SUM_OUT * SUM_SPLIT, 0, stream>>>(
@@ -871,9 +872,10 @@ int by_rows(int M, Fn&& fn) {
 template <typename W>
 int dispatch(const void* x, const void* wg, const void* gs, const void* wu, const void* us,
              const void* wd, const void* ds, void* part, void* out, int M, int H, int F,
-             cudaStream_t s) {
+             int ldw, cudaStream_t s) {
   return by_rows(M, [&](auto mt8) {
-    return launch<W, decltype(mt8)::value>(x, wg, gs, wu, us, wd, ds, part, out, M, H, F, s);
+    return launch<W, decltype(mt8)::value>(x, wg, gs, wu, us, wd, ds, part, out, M, H, F, ldw,
+                                           s);
   });
 }
 
@@ -927,15 +929,22 @@ extern "C" int kt_fused_mlp_plan(int M, int H, int F, int w_int8, int x_f32, int
 // kernel, then one of the cluster sum.
 // f32 x (x_f32 = 1): x (M, H), weights int8 or f32, scratch (M, F) f32
 // (h), out (M, H) f32. H % 64 == 0, F % 64 == 0, any M >= 1.
+// ldw: the row stride of wg and wu, in elements: F for two (H, F)
+// matrices, 2F for the fused layout, where wg and wu are the two halves of
+// one (H, 2F) matrix (wu = wg + F, us = gs + F). Only the weight copies'
+// addresses change with it, so at one F both layouts run the same plan
+// and give the same bits.
 extern "C" int kt_fused_mlp(const void* x, const void* wg, const void* gs, const void* wu,
                             const void* us, const void* wd, const void* ds, void* scratch,
-                            void* out, int M, int H, int F, int w_int8, int x_f32,
+                            void* out, int M, int H, int F, int ldw, int w_int8, int x_f32,
                             void* stream) {
-  if (M < 1 || H % CK || F % k3::FT) return (int)cudaErrorInvalidValue;
+  if (M < 1 || H % CK || F % k3::FT || ldw < F) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (x_f32)
-    return w_int8 ? f32mode::mlp<int8_t>(x, wg, gs, wu, us, wd, ds, scratch, out, M, H, F, s)
-                  : f32mode::mlp<float>(x, wg, gs, wu, us, wd, ds, scratch, out, M, H, F, s);
-  return w_int8 ? k3::dispatch<int8_t>(x, wg, gs, wu, us, wd, ds, scratch, out, M, H, F, s)
-                : k3::dispatch<bf16>(x, wg, gs, wu, us, wd, ds, scratch, out, M, H, F, s);
+    return w_int8
+               ? f32mode::mlp<int8_t>(x, wg, gs, wu, us, wd, ds, scratch, out, M, H, F, ldw, s)
+               : f32mode::mlp<float>(x, wg, gs, wu, us, wd, ds, scratch, out, M, H, F, ldw, s);
+  return w_int8
+             ? k3::dispatch<int8_t>(x, wg, gs, wu, us, wd, ds, scratch, out, M, H, F, ldw, s)
+             : k3::dispatch<bf16>(x, wg, gs, wu, us, wd, ds, scratch, out, M, H, F, ldw, s);
 }

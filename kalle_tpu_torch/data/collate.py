@@ -1,5 +1,5 @@
 """Sequence packing and collation, numpy, host side (copy of
-kalle_tpu/data/collate.py without the CFG dropout).
+kalle_tpu/data/collate.py, the CFG mask dropout included).
 
 Mask semantics of the reference collate:
   * one packed row per sample: [text ids][audio frames];
@@ -80,6 +80,17 @@ def collate(batch: List[Item], pad_token_id: int,
         "raw_texts": raw_texts,
         "speech_paths": speech_paths,
     }
+
+
+def cfg_mask_dropout(batch: Dict[str, np.ndarray], cfg_prob: float,
+                     rng: np.random.Generator) -> Dict[str, np.ndarray]:
+    """CFG training: drop each audio position from the attention mask with
+    probability cfg_prob (the reference's attention_mask = ids_mask +
+    audio_latents_mask). The latents stay in the input embeddings."""
+    out = dict(batch)
+    drop = rng.random(batch["audio_mask"].shape) < cfg_prob
+    out["audio_mask"] = np.logical_and(batch["audio_mask"], ~drop)
+    return out
 
 
 def pad_batch_rows(batch: Dict[str, np.ndarray], multiple: int,

@@ -1,5 +1,7 @@
 """Host-side datasets: jsonl metadata + precomputed-latent .npy files (copy
-of the offline-latent part of kalle_tpu/data/datasets.py).
+of kalle_tpu/data/datasets.py: `OfflineLatentDataset`, the SFT mix
+`SftMixDataset`, the mel-VAE cache `MelVAECacheDataset` and
+`PrefetchLoader`).
 
 Rows carry a caption (`AudioSetCaps` / `caption` / `text`), `speech`, and
 `vae` (sigma: a (1, T, 64) .npy of means) or `vae_latent_path`
@@ -11,13 +13,15 @@ length buckets on a producer thread.
 from __future__ import annotations
 
 import json
+import os
 import queue
 import random
 import threading
-from typing import Dict, Iterator, List, Optional, Sequence
+from typing import Callable, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
+from ..utils.audio import read_wav, resample_linear
 from .collate import DynamicBatchGenerator, Item, collate
 from .data_pool import finite_iter, put_until_stopped
 from .tokens import build_prompt_ids
@@ -129,6 +133,65 @@ class OfflineLatentDataset:
         idxs = list(range(len(self.lines)))
         self.py_rng.shuffle(idxs)
         return idxs
+
+
+class SftMixDataset(OfflineLatentDataset):
+    """SFT mixing: each epoch trains on the SFT rows plus an equal-size
+    random sample of the base rows, shuffled together (the reference's
+    `sft_lst + random.sample(base_lst, len(sft_lst))`), drawn from the
+    epoch-seeded `py_rng` as the JAX package draws them."""
+
+    def __init__(self, base_meta, sft_meta, tokenizer, **kw):
+        self.base_lines = read_jsonl(base_meta) if isinstance(base_meta, str) else list(base_meta)
+        self.sft_lines = read_jsonl(sft_meta) if isinstance(sft_meta, str) else list(sft_meta)
+        super().__init__(self.sft_lines, tokenizer, **kw)
+        self.set_epoch(0)
+
+    def set_epoch(self, epoch: int) -> None:
+        super().set_epoch(epoch)
+        if hasattr(self, "base_lines"):
+            n = min(len(self.sft_lines), len(self.base_lines))
+            self.lines = self.sft_lines + self.py_rng.sample(self.base_lines, n)
+            self.py_rng.shuffle(self.lines)
+
+
+class MelVAECacheDataset(OfflineLatentDataset):
+    """mel-VAE latents cached next to the wav as `{speech_stem}.melvae.npy`,
+    (1, 2*dim, T) mean||log_scale. A cached file is loaded; otherwise the
+    row's wav (mixed to mono, resampled to `target_sr`) goes through the
+    injected `encode_fn` ((1, 1, T) f32 -> (1, 2*dim, T')) and the result
+    is written back atomically (a temporary file, then a rename), so the
+    first epoch pays the encode once. Each item's latents are a
+    reparameterised draw mean + exp(log_scale) * N(0, 1) from the
+    dataset's numpy generator; its distribution is mean||log_scale."""
+
+    def __init__(self, meta_path_or_lines, tokenizer,
+                 encode_fn: Callable[[np.ndarray], np.ndarray],
+                 target_sr: int = 16000, write_cache: bool = True, **kw):
+        kw.setdefault("latent_kind", "melvae")
+        super().__init__(meta_path_or_lines, tokenizer, **kw)
+        self.encode_fn = encode_fn
+        self.target_sr = target_sr
+        self.write_cache = write_cache
+
+    def _latents(self, row: dict):
+        speech = row["speech"]
+        cache = os.path.splitext(speech)[0] + ".melvae.npy"
+        if os.path.exists(cache):
+            mean_scale = np.load(cache)
+        else:
+            wav, sr = read_wav(speech)
+            wav = resample_linear(wav.mean(axis=0, keepdims=True), sr, self.target_sr)
+            mean_scale = np.asarray(self.encode_fn(wav[None].astype(np.float32)))
+            if self.write_cache:
+                tmp = cache[:-len(".npy")] + ".tmp.npy"
+                np.save(tmp, mean_scale)
+                os.replace(tmp, cache)
+        d = mean_scale.shape[1] // 2
+        mean, logs = mean_scale[0, :d], mean_scale[0, d:]
+        lat = (mean + np.exp(logs) * self.rng.standard_normal(mean.shape)
+               ).astype(np.float32).T
+        return lat, mean_scale[0].astype(np.float32).T
 
 
 class PrefetchLoader:

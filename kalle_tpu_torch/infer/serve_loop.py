@@ -22,8 +22,10 @@ donates its buffers to the same effect). In each decode layer:
     write on the same stream;
   * with an int8 KV cache, the quantised column is written first and K1's
     int8 mode reads it (the sideband takes no int8 cache, as in JAX).
-Every t=1 step goes through K1; int8 layer weights stream through K2/K3
-and dense ones take `maybe_matmul` (llama._proj / llama._mlp).
+Every t=1 step goes through K1; per-channel int8 layer weights stream
+through K2/K3 (the fused decode layout's wqkv in one K2 launch, its wgu
+through K3's fused mode), and dense and group-wise (int4) ones take
+`maybe_matmul` (llama._qkv / llama._proj / llama._mlp).
 
 `decode_until` is a host loop that reads one flag a step (the JAX package
 runs it as a device `while_loop`). Sampling draws from a `torch.Generator`
@@ -31,8 +33,7 @@ seeded from `seed`; it gives other numbers than `jax.random`, so parity
 with JAX is held with greedy=True.
 
 Not ported yet: `state_pspecs`/`shard_state` and the `mesh` argument
-(multi-GPU serving), and the fused wqkv/wgu decode layout
-(`ops.quant.fuse_decode_params`); both raise.
+(multi-GPU serving), which raises.
 """
 from __future__ import annotations
 
@@ -151,14 +152,13 @@ def _decode_layer(cfg, x: torch.Tensor, lp: dict, cos, sin, state: ServeState, l
     slot is masked for them and their length stays."""
     dt = x.dtype
     B = x.shape[0]
-    nq, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    nq, hd = cfg.num_heads, cfg.head_dim
     rows = torch.arange(B, device=x.device)
     slot = state.length
 
-    attn_in = llama.rms_norm(x, lp["attn_norm"].to(dt), cfg.rms_norm_eps)
-    q = llama.apply_rope(llama._proj(attn_in, lp["wq"], True).reshape(B, 1, nq, hd), cos, sin)
-    k = llama.apply_rope(llama._proj(attn_in, lp["wk"], True).reshape(B, 1, nkv, hd), cos, sin)
-    v = llama._proj(attn_in, lp["wv"], True).reshape(B, 1, nkv, hd)
+    q, k, v = llama._qkv(cfg, llama.rms_norm(x, lp["attn_norm"].to(dt), cfg.rms_norm_eps),
+                         lp, True)
+    q, k = llama.apply_rope(q, cos, sin), llama.apply_rope(k, cos, sin)
 
     if state.k_scale is not None:  # int8 KV: write the quantised column, then read it
         kq, ks = llama._quantize_kv(k)
@@ -284,9 +284,6 @@ class ContinuousBatcher:
                  seed: int = 0, greedy: bool = False, mesh=None, device="cuda"):
         if mesh is not None:
             raise NotImplementedError("multi-GPU serving (mesh=) is not ported")
-        if {"wqkv", "wgu"} & set(params["llama"]["layers"]):
-            raise NotImplementedError("the fused wqkv/wgu decode layout "
-                                      "(fuse_decode_params) is not ported")
         self.greedy = greedy
         self.params = params
         self.cfg = cfg

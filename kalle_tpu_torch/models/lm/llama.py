@@ -4,7 +4,8 @@ full-sequence training forward.
 
 Params keep the JAX layout: a dict whose `layers` entry stacks the L
 transformer layers on a leading axis, matmul weights (in, out), optionally
-int8 {'q','scale'} dicts (ops/quant.py).
+int8 or int4 {'q','scale'} dicts (ops/quant.py), optionally in the fused
+decode layout (`wqkv`, `wgu`: ops.quant.fuse_decode_params).
 
 The KV cache keeps the JAX package's layout too — keys transposed per head
 (L, b, nkv, hd, C), values (L, b, nkv, C, hd) — and is updated IN PLACE:
@@ -12,13 +13,17 @@ The KV cache keeps the JAX package's layout too — keys transposed per head
 returns that same object.
 
 Which path a layer takes goes by shape and weights: a t=1 step with a
-cache (the decode step) attends through K1 decode attention, and its int8
-weights stream through K2 `qmm` (wq/wk/wv/wo) and K3 `fused_mlp` (the MLP);
-the wrappers launch the CUDA kernels on the card and run their plain
-versions on the CPU. Dense weights take `maybe_matmul` in every step, as
-the JAX package leaves its decode matmuls to XLA (kalle_tpu/models/lm/
-llama.py:236-243): the route is chosen here, at the call site, and a
-kernel wrapper raises on what its kernel cannot take. Prefill (t>1) uses
+cache (the decode step) attends through K1 decode attention, and its
+per-channel int8 weights stream through K2 `qmm` (wq/wk/wv/wo, or the
+fused wqkv in one launch, split into q/k/v after) and K3 `fused_mlp` (the
+MLP; the fused wgu in K3's fused mode); the wrappers launch the CUDA
+kernels on the card and run their plain versions on the CPU. Dense
+weights take `maybe_matmul` in every step, as the JAX package leaves its
+decode matmuls to XLA (kalle_tpu/models/lm/llama.py:236-256), and so do
+group-wise (int4) weights, whose matmul the JAX package also leaves to
+XLA (kalle_tpu/ops/quant.py:58-66): the route is chosen here, at the call
+site, by the weights' structure and their scale's rank, and a kernel
+wrapper raises on what its kernel cannot take. Prefill (t>1) uses
 `mha_t` and `maybe_matmul` in plain PyTorch. The JAX gate that keeps small
 batches and int8 KV caches off its decode kernel was measured on a TPU;
 here every t=1 step takes K1.
@@ -45,7 +50,7 @@ from ...ops.attention import make_causal_padding_mask, mha, mha_t
 from ...ops.kernels.decode_attention import decode_attention_cached
 from ...ops.kernels.flash_attention import flash_attention
 from ...ops.kernels.qmm import fused_mlp, qmm
-from ...ops.quant import is_quantized, maybe_matmul
+from ...ops.quant import is_grouped, is_quantized, maybe_matmul
 
 
 @dataclass
@@ -190,22 +195,46 @@ def embed_tokens(params: dict, input_ids: torch.Tensor, cfg: LlamaConfig) -> tor
 # Forward
 # ---------------------------------------------------------------------------
 
+def _streams(w, decode: bool) -> bool:
+    """Whether this matmul goes through K2/K3: a decode step's per-channel
+    int8 weight (dense and group-wise weights take `maybe_matmul`)."""
+    return decode and is_quantized(w) and not is_grouped(w)
+
+
 def _proj(x: torch.Tensor, w, decode: bool) -> torch.Tensor:
     """x (..., in) @ w: the decode step streams int8 weights through K2."""
-    if not (decode and is_quantized(w)):
+    if not _streams(w, decode):
         return maybe_matmul(x, w)
     return qmm(x.reshape(-1, x.shape[-1]), w["q"], w["scale"]).reshape(
         *x.shape[:-1], w["q"].shape[-1])
 
 
+def _qkv(cfg: LlamaConfig, x: torch.Tensor, lp: dict, decode: bool):
+    """The q (b, t, nq, hd), k and v (b, t, nkv, hd) projections of x (b,
+    t, h), before RoPE: three matmuls, or one over the fused `wqkv` split
+    into its q|k|v columns."""
+    b, t, _ = x.shape
+    nq, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    if "wqkv" in lp:
+        q, k, v = _proj(x, lp["wqkv"], decode).split([nq * hd, nkv * hd, nkv * hd], dim=-1)
+    else:
+        q, k, v = (_proj(x, lp[n], decode) for n in ("wq", "wk", "wv"))
+    return q.reshape(b, t, nq, hd), k.reshape(b, t, nkv, hd), v.reshape(b, t, nkv, hd)
+
+
 def _mlp(x: torch.Tensor, lp: dict, decode: bool) -> torch.Tensor:
     """SwiGLU MLP of x (..., h): the decode step streams int8 weights
-    through K3."""
-    if decode and is_quantized(lp["wg"]):
-        return fused_mlp(x.reshape(-1, x.shape[-1]), lp["wg"], lp["wu"],
+    through K3 (the fused `wgu` in its fused mode)."""
+    fused = "wgu" in lp
+    wg = lp["wgu"] if fused else lp["wg"]
+    if _streams(wg, decode):
+        return fused_mlp(x.reshape(-1, x.shape[-1]), wg, None if fused else lp["wu"],
                          lp["wd"]).reshape(x.shape)
-    gate = F.silu(maybe_matmul(x, lp["wg"]))
-    return maybe_matmul(gate * maybe_matmul(x, lp["wu"]), lp["wd"])
+    if fused:
+        g, up = maybe_matmul(x, wg).chunk(2, dim=-1)
+    else:
+        g, up = maybe_matmul(x, wg), maybe_matmul(x, lp["wu"])
+    return maybe_matmul(F.silu(g) * up, lp["wd"])
 
 
 def _layer(cfg: LlamaConfig, x: torch.Tensor, lp: dict, cos, sin, mask,
@@ -218,13 +247,11 @@ def _layer(cfg: LlamaConfig, x: torch.Tensor, lp: dict, cos, sin, mask,
     and attends over that layer of the cache."""
     dt = x.dtype
     b, t, _ = x.shape
-    nq, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    nq, hd = cfg.num_heads, cfg.head_dim
     decode = t == 1 and cache is not None
 
-    attn_in = rms_norm(x, lp["attn_norm"].to(dt), cfg.rms_norm_eps)
-    q = apply_rope(_proj(attn_in, lp["wq"], decode).reshape(b, t, nq, hd), cos, sin)
-    k = apply_rope(_proj(attn_in, lp["wk"], decode).reshape(b, t, nkv, hd), cos, sin)
-    v = _proj(attn_in, lp["wv"], decode).reshape(b, t, nkv, hd)
+    q, k, v = _qkv(cfg, rms_norm(x, lp["attn_norm"].to(dt), cfg.rms_norm_eps), lp, decode)
+    q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
 
     if cache is None:
         attn = (flash_attention(q, k, v, flash_pad) if flash_pad is not None

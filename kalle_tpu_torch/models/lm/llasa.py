@@ -80,6 +80,20 @@ def sample_fix(generator: torch.Generator, mean: torch.Tensor, std: float) -> to
     return mean + std * noise.to(mean.dtype)
 
 
+def sample_gaussian(generator: torch.Generator, mean: torch.Tensor, std: float) -> torch.Tensor:
+    """sigma-VAE 'gaussian' sampling: a random std a row, N(0, 1) *
+    std / 0.8, times N(0, 1) noise a value, added to mean; both drawn in f32
+    from `generator` (on mean's device), cast to mean's dtype."""
+    b = mean.shape[0]
+
+    def normal(*shape):
+        return torch.randn(shape, generator=generator, device=mean.device,
+                           dtype=torch.float32).to(mean.dtype)
+
+    per_row = (normal(b) * (std / 0.8)).reshape((b,) + (1,) * (mean.dim() - 1))
+    return mean + per_row * normal(*mean.shape)
+
+
 def embed_inputs(params: dict, cfg: LlasaConfig, batch: Dict[str, torch.Tensor],
                  generator: Optional[torch.Generator] = None,
                  latent_noise: Optional[torch.Tensor] = None

@@ -9,6 +9,15 @@ it runs more than one cluster, a small kernel that sums the clusters'
 partial outputs). Both read x as it is: the kernels zero the rows past M
 themselves. On CPU tensors they run the plain versions below, which
 repeat the kernels' arithmetic in PyTorch.
+
+K3 has a fused mode for the decode layout of `ops.quant.fuse_decode_params`:
+`fused_mlp(x, wgu, None, wd)` takes wg and wu as the two halves of one
+(H, 2F) matrix `wgu` (and its (2F,) scales). The kernel then reads the
+weight rows at a stride of 2F and the up half from column F; nothing else
+changes, so at one F it gives the bits of the unfused call. It counts as
+`fused_mlp_gu`. K2 needs no mode for `wqkv`: it is one (H, 3072) weight.
+Group-wise (int4) scales are taken by neither kernel (a ValueError):
+`models/lm/llama.py` routes them to `ops.quant.qmatmul`.
 """
 from __future__ import annotations
 
@@ -22,9 +31,10 @@ from . import _build
 
 NAME_QMM = "qmm"
 NAME_MLP = "fused_mlp"
+NAME_MLP_GU = "fused_mlp_gu"
 _P, _I = _build.P, _build.I
 _SIGS = {"kt_qmm": [_P] * 4 + [_I] * 5 + [_P],
-         "kt_fused_mlp": [_P] * 9 + [_I] * 5 + [_P],
+         "kt_fused_mlp": [_P] * 9 + [_I] * 6 + [_P],
          "kt_fused_mlp_plan": [_I] * 5 + [_P]}
 # activation dtype -> the weight dtypes the kernels take with it
 _WEIGHTS = {torch.bfloat16: (torch.int8, torch.bfloat16),
@@ -48,11 +58,21 @@ def qmm_plain(x: torch.Tensor, w: torch.Tensor,
     return _dequant_dot(x, w, scale).to(x.dtype)
 
 
+def _halves(wgu) -> Tuple[tuple, tuple]:
+    """The (q, scale) pairs of the gate and up halves of a fused (H, 2F)
+    weight, as views."""
+    q, s = _split(wgu)
+    f = q.shape[-1] // 2
+    return (q[:, :f], None if s is None else s[:f]), (q[:, f:], None if s is None else s[f:])
+
+
 def fused_mlp_plain(x: torch.Tensor, wg, wu, wd) -> torch.Tensor:
     """silu(x@wg) * (x@wu) @ wd; weights are {'q','scale'} dicts or dense
-    matrices. h is rounded to x.dtype and wd's scale applied once at the
-    end, as in the kernel."""
-    (gq, gs), (uq, us), (dq, ds) = _split(wg), _split(wu), _split(wd)
+    matrices, and wu None takes wg as the fused (H, 2F) [wg | wu]. h is
+    rounded to x.dtype and wd's scale applied once at the end, as in the
+    kernel."""
+    (gq, gs), (uq, us) = _halves(wg) if wu is None else (_split(wg), _split(wu))
+    dq, ds = _split(wd)
     h = (F.silu(_dequant_dot(x, gq, gs)) * _dequant_dot(x, uq, us)).to(x.dtype)
     return _dequant_dot(h, dq, ds).to(x.dtype)
 
@@ -96,18 +116,30 @@ def qmm(x: torch.Tensor, w: torch.Tensor,
 
 def fused_mlp(x: torch.Tensor, wg, wu, wd) -> torch.Tensor:
     """SwiGLU MLP in one weight pass: x (M, H) with wg, wu (H, F) and wd
-    (F, H), each an int8 {'q','scale'} dict or a dense matrix of x's dtype."""
-    (gq, gs), (uq, us), (dq, ds) = _split(wg), _split(wu), _split(wd)
+    (F, H), each an int8 {'q','scale'} dict or a dense matrix of x's dtype;
+    or, with wu None, wg the fused (H, 2F) [wg | wu] (K3's fused mode)."""
+    fused = wu is None
+    if fused:
+        (gq, gs), (uq, us) = _split(wg), (None, None)
+    else:
+        (gq, gs), (uq, us) = _split(wg), _split(wu)
+    dq, ds = _split(wd)
     tensors = [t for t in (x, gq, gs, uq, us, dq, ds) if t is not None]
     if _build.on_cpu(*tensors):
         return fused_mlp_plain(x, wg, wu, wd)
-    h, f = gq.shape
-    if not (_takes(x, [(gq, gs), (uq, us), (dq, ds)], [(h, f), (h, f), (f, h)])
-            and h % 64 == 0 and f % 64 == 0):
-        raise ValueError("fused_mlp takes contiguous x (M, H) and wg, wu (H, F), wd "
-                         "(F, H) of one dtype, int8 with f32 scales or x's dtype, x bf16 "
-                         "or f32, H % 64 == 0, F % 64 == 0; got "
-                         + _build.describe(*tensors))
+    h, f = dq.shape[1], dq.shape[0]
+    pairs, shapes = ([(gq, gs), (dq, ds)], [(h, 2 * f), (f, h)]) if fused else (
+        [(gq, gs), (uq, us), (dq, ds)], [(h, f), (h, f), (f, h)])
+    if not (_takes(x, pairs, shapes) and h % 64 == 0 and f % 64 == 0):
+        raise ValueError("fused_mlp takes contiguous x (M, H) and wg, wu (H, F) or one "
+                         "(H, 2F) [wg | wu], wd (F, H) of one dtype, int8 with f32 (N,) "
+                         "scales or x's dtype, x bf16 or f32, H % 64 == 0, F % 64 == 0; "
+                         "got " + _build.describe(*tensors))
+    if fused:  # the up half: column F of the same rows
+        uq_ptr = gq.data_ptr() + f * gq.element_size()
+        us_ptr = None if gs is None else gs.data_ptr() + f * gs.element_size()
+    else:
+        uq_ptr, us_ptr = uq.data_ptr(), _build.ptr(us)
     m = x.shape[0]
     f32 = x.dtype == torch.float32
     w_int8 = gq.dtype == torch.int8
@@ -116,12 +148,12 @@ def fused_mlp(x: torch.Tensor, wg, wu, wd) -> torch.Tensor:
                           dtype=torch.float32, device=x.device)
     out = torch.empty((m, h), dtype=x.dtype, device=x.device)
     lib = _build.load(NAME_QMM, _SIGS)
-    rc = lib.kt_fused_mlp(x.data_ptr(), gq.data_ptr(), _build.ptr(gs), uq.data_ptr(),
-                          _build.ptr(us), dq.data_ptr(), _build.ptr(ds),
-                          scratch.data_ptr(), out.data_ptr(), m, h, f,
-                          int(w_int8), int(f32), _build.stream())
+    rc = lib.kt_fused_mlp(x.data_ptr(), gq.data_ptr(), _build.ptr(gs), uq_ptr, us_ptr,
+                          dq.data_ptr(), _build.ptr(ds), scratch.data_ptr(), out.data_ptr(),
+                          m, h, f, 2 * f if fused else f, int(w_int8), int(f32),
+                          _build.stream())
     _build.check(lib, rc, NAME_MLP)
-    _build.count(NAME_MLP)
+    _build.count(NAME_MLP_GU if fused else NAME_MLP)
     return out
 
 

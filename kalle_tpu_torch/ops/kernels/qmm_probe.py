@@ -199,6 +199,11 @@ def probe_fused_mlp(g, against: Optional[str] = None) -> None:
         if against else None
     libs = build_variants("qmm.cu", K3_CUTS, {k: _SIGS[k] for k in _SIGS
                                              if k.startswith("kt_fused_mlp")}, "k3", others)
+    # a checkout from before K3's fused mode takes no weight row stride
+    unstrided = {name for name, path in (others or {}).items()
+                 if "int ldw" not in Path(path).read_text()}
+    for name in unstrided:
+        libs[name].kt_fused_mlp.argtypes = [_build.P] * 9 + [_build.I] * 5 + [_build.P]
     (gq, gs, gd), (uq, us, ud), (dq, ds, dd) = (int8_layers(g, *s) for s in
                                                 ((H, F), (H, F), (F, H)))
     gu = torch.cat([gd, ud], dim=2)
@@ -223,12 +228,14 @@ def probe_fused_mlp(g, against: Optional[str] = None) -> None:
                 raise RuntimeError(f"qmm_probe {variant}: no plan")
             scratch = torch.empty(max(plan[0], m * H), device="cuda")
 
-            def call(lib=lib, scratch=scratch):
+            dims = (m, H, F) if variant in unstrided else (m, H, F, F)
+
+            def call(lib=lib, scratch=scratch, dims=dims):
                 i = next(layers) % LAYERS
                 rc = lib.kt_fused_mlp(xp.data_ptr(), gq[i].data_ptr(), gs[i].data_ptr(),
                                       uq[i].data_ptr(), us[i].data_ptr(), dq[i].data_ptr(),
                                       ds[i].data_ptr(), scratch.data_ptr(), out.data_ptr(),
-                                      m, H, F, 1, 0, _build.stream())
+                                      *dims, 1, 0, _build.stream())
                 if rc:
                     raise RuntimeError(f"qmm_probe {variant}: CUDA error {rc}")
             row.append(f"{variant} {graph_ms(call) * 1e3:.2f}")

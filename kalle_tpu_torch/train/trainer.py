@@ -3,25 +3,33 @@ data -> step -> metrics and checkpoints).
 
 dataset -> PrefetchLoader -> an accumulation buffer of A batches ->
 `train_step`; a log line every `log_interval` steps in the JAX package's
-format (JSONL and the text log too); a checkpoint every `save_interval`
-steps and at `max_steps`; resume from the newest checkpoint in
+format (JSONL and the text log too), then the optional eval hook
+(`train/eval_hook.py`); a checkpoint every `save_interval` steps and at
+`max_steps`, written on the checkpoint manager's thread (the last one
+waited for before `fit` returns); resume from the newest checkpoint in
 `<output_dir>/torch`.
 
+Initial weights, in order: a random init from the config's seed; the HF
+Llama backbone at `llm_model_name_or_path`, through `transformers`
+(imported only then; a warning and the random backbone when it fails, as
+in the JAX package); a reference Llasa checkpoint at `start_checkpoint`
+when that file exists (warm start). A checkpoint of this trainer's own,
+when there is one, then takes precedence (resume).
+
 Not ported yet: the dp/tp/pp mesh, fsdp and multi-host (a config asking
-for them raises), loading an HF backbone or a reference checkpoint (a
-warning, then random init, as the JAX package does when its load fails),
-and the mid-train eval hook.
+for them raises).
 """
 from __future__ import annotations
 
 import os
 import time
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..core.checkpoint import CheckpointManager
+from ..bridge import params_from_jax
+from ..core.checkpoint import CheckpointManager, load_reference_llasa_checkpoint
 from ..core.config import ExperimentConfig
 from ..data.collate import stack_microbatches
 from ..data.datasets import OfflineLatentDataset, PrefetchLoader
@@ -33,9 +41,21 @@ BATCH_KEYS = ("input_ids", "audio_latents", "distribute_labels",
               "ids_mask", "audio_mask", "target_mask", "end_mask")
 
 
+def device_batch(np_batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
+    """The model's arrays of a collated numpy batch as tensors on `device`
+    (input_ids as int64)."""
+    out = {}
+    for k in BATCH_KEYS:
+        t = torch.from_numpy(np.ascontiguousarray(np_batch[k]))
+        out[k] = (t.long() if k == "input_ids" else t).to(device)
+    return out
+
+
 class Trainer:
-    def __init__(self, exp: ExperimentConfig, tokenizer, device="cuda"):
+    def __init__(self, exp: ExperimentConfig, tokenizer,
+                 eval_hook: Optional[Callable] = None, device="cuda"):
         self.exp = exp
+        self.eval_hook = eval_hook
         self.cfg = exp.model
         self.tcfg = exp.train
         self.tokenizer = tokenizer
@@ -60,19 +80,28 @@ class Trainer:
         gen = torch.Generator(device=self.device).manual_seed(self.tcfg.seed)
         params = llasa.init_params(self.cfg, gen, self.device)
         if self.exp.llm_model_name_or_path:
-            print(f"WARNING: could not load backbone from {self.exp.llm_model_name_or_path}: "
-                  "loading HF Llama weights is not ported yet; using random init")
-        if self.exp.start_checkpoint:
-            print(f"WARNING: not warm-starting from {self.exp.start_checkpoint}: reference "
-                  "checkpoint import is not ported yet; using random init")
+            path = self.exp.llm_model_name_or_path
+            try:
+                from transformers import AutoModelForCausalLM
+
+                from ..models.lm.convert import llama_params_from_state_dict
+
+                m = AutoModelForCausalLM.from_pretrained(path, torch_dtype=torch.float32)
+                params["llama"] = params_from_jax(
+                    llama_params_from_state_dict(m.state_dict(), self.cfg.llama),
+                    device=self.device)
+                print(f"loaded Llama backbone from {path}")
+            except Exception as e:  # noqa: BLE001 — the JAX package warns and goes on
+                print(f"WARNING: could not load backbone from {path}: {e}; "
+                      "using random init")
+        if self.exp.start_checkpoint and os.path.exists(self.exp.start_checkpoint):
+            params = load_reference_llasa_checkpoint(self.exp.start_checkpoint, self.cfg,
+                                                     self.device)
+            print(f"warm-started from {self.exp.start_checkpoint}")
         return params
 
     def _device_batch(self, np_batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        out = {}
-        for k in BATCH_KEYS:
-            t = torch.from_numpy(np.ascontiguousarray(np_batch[k]))
-            out[k] = (t.long() if k == "input_ids" else t).to(self.device)
-        return out
+        return device_batch(np_batch, self.device)
 
     def fit(self, max_steps: Optional[int] = None,
             profile_steps: Optional[Tuple[int, int]] = None) -> Dict[str, float]:
@@ -105,7 +134,7 @@ class Trainer:
                         batch = self._device_batch(stack_microbatches(
                             [{k: b[k] for k in BATCH_KEYS} for b in micro_buf],
                             self.tokenizer.pad_token_id))
-                        np_batch = micro_buf[-1]  # for the log line
+                        np_batch = micro_buf[-1]  # for the log line and the eval hook
                         micro_buf = []
                     else:
                         batch = self._device_batch(np_batch)
@@ -131,6 +160,8 @@ class Trainer:
                                 f"end_loss:{m['end_loss']:.5f}")
                         print(line)
                         self.metrics.text_log(line)
+                        if self.eval_hook is not None:
+                            self.eval_hook(self, step, np_batch)
 
                     if step % tcfg.save_interval == 0:
                         self.ckpt.save(step, self.state)
@@ -141,6 +172,7 @@ class Trainer:
                 epoch += 1
         finally:
             loader.close()
+            self.ckpt.close()
 
     def _start_profile(self) -> None:
         from torch.profiler import ProfilerActivity, profile

@@ -4,7 +4,9 @@ small and ragged shapes the main path does not reach (C not a multiple of
 64, f32 and int8 caches, K1's sideband, K1 at 16 heads a group and hd 256,
 dense bf16 weights, K2 split over K at M 1..130, K2/K3 with f32
 activations, K3's tensor-core kernel at M 1..72 with int8 and bf16
-weights (reruns bit-identical), K4's tensor-core instances at C 16..512
+weights (reruns bit-identical), K3's fused mode (wg | wu as one (H, 2F)
+matrix) bit-identical to the unfused call, K2 on the fused wq|wk|wv in
+one launch, K4's tensor-core instances at C 16..512
 and T 1..300 (reruns bit-identical, no look-ahead), ConvNeXt widths
 outside the decoder's and mlp_ratio 3; K1's tensor-core kernel at batch 1, 8
 and 32 on its edge cases (reruns bit-identical) and at ragged C, hd and
@@ -14,7 +16,7 @@ K6's and K7's tensor-core instances at every head dim, K6/K7 also at t 200
 and GQA groups 1, 4 and 8 with their dead rows exactly 0 and reruns
 bit-identical), one flash train_step against the
 plain path, and whole paths on the card against the CPU: `generate` on the
-tiny f32 config (dense and int8 weights) and at batch 72, the tiny codec
+tiny f32 config (dense, int8, fused and int4 weights) and at batch 72, the tiny codec
 in bf16, and the continuous batcher. Needs an NVIDIA GPU and nvcc; skipped elsewhere. On
 the card (this file imports no JAX, so no conftest):
 
@@ -321,6 +323,55 @@ def test_fused_mlp_tensor_cores(g, m, int8, h, f):
     assert torch.equal(k23.fused_mlp(x, *ws), got)
 
 
+@pytest.mark.parametrize("h,f", [(2048, 8192), (256, 512)])
+@pytest.mark.parametrize("int8", [True, False])
+@pytest.mark.parametrize("dtype", [BF, torch.float32])
+@pytest.mark.parametrize("m", [1, 8, 32, 72])
+def test_fused_mlp_fused_mode_equals_unfused(g, m, dtype, int8, h, f):
+    """K3's fused mode (wg | wu as one (H, 2F) matrix, the decode layout of
+    fuse_decode_params) gives the unfused call's bits on the same weights:
+    the same plan, only the weight copies' addresses differ. Counted as
+    fused_mlp_gu, one launch a call."""
+    def weight(*shape):
+        w = torch.randn(*shape, generator=g, device="cuda") * 0.02
+        if not int8:
+            return w.to(dtype)
+        s = w.abs().amax(0) / 127
+        return {"q": torch.round(w / s).to(torch.int8), "scale": s}
+
+    wg, wu, wd = weight(h, f), weight(h, f), weight(f, h)
+    wgu = ({"q": torch.cat([wg["q"], wu["q"]], 1), "scale": torch.cat([wg["scale"], wu["scale"]])}
+           if int8 else torch.cat([wg, wu], 1))
+    x = torch.randn(m, h, generator=g, device="cuda").to(dtype)
+    before = _build.launches().get(k23.NAME_MLP_GU, 0)
+    got = k23.fused_mlp(x, wgu, None, wd)
+    assert _build.launches().get(k23.NAME_MLP_GU, 0) == before + 1
+    assert torch.equal(got, k23.fused_mlp(x, wg, wu, wd))
+    ref = k23.fused_mlp_plain(x, wgu, None, wd)
+    assert float((got.float() - ref.float()).abs().max() / ref.float().abs().max()) < 1e-2
+
+
+@pytest.mark.parametrize("m", [1, 8, 32, 72])
+def test_qmm_wqkv_one_launch(g, m):
+    """K2 on the fused wq|wk|wv (N 3072: N % 32 == 0, the split-K plan of
+    any N) in one launch against the three separate launches, bf16."""
+    h = 2048
+    ws = []
+    for n in (2048, 512, 512):
+        w = torch.randn(h, n, generator=g, device="cuda") * 0.02
+        s = w.abs().amax(0) / 127
+        ws.append((torch.round(w / s).to(torch.int8), s))
+    q = torch.cat([w for w, _ in ws], 1)
+    s = torch.cat([s for _, s in ws])
+    x = torch.randn(m, h, generator=g, device="cuda").to(BF)
+    before = _build.launches().get(k23.NAME_QMM, 0)
+    got = k23.qmm(x, q, s)
+    assert _build.launches().get(k23.NAME_QMM, 0) == before + 1
+    ref = torch.cat([k23.qmm(x, w, sc) for w, sc in ws], 1)
+    _close(got, ref, 2e-2)
+    _close(got, k23.qmm_plain(x, q, s), 2e-2)
+
+
 @pytest.mark.parametrize("b", [1, 3])
 @pytest.mark.parametrize("t", [1, 7, 100, 300])
 @pytest.mark.parametrize("c", [16, 32, 64, 128, 256, 512])
@@ -588,6 +639,36 @@ def test_generate_tiny_f32_int8_on_card(g):
     after = _build.launches()
     for name, n in ((k23.NAME_QMM, 4 * 2 * 8), (k23.NAME_MLP, 2 * 8), (k1.NAME, 2 * 8)):
         assert after.get(name, 0) - before.get(name, 0) == n
+    assert torch.equal(got.n_frames.cpu(), ref.n_frames)
+    torch.testing.assert_close(got.means.cpu(), ref.means, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("layout", ["int8_fused", "dense_fused", "int4", "int4_fused"])
+def test_generate_tiny_f32_fused_and_int4_on_card(g, layout):
+    """The fused decode layout and int4 weights on the card against the
+    CPU (f32, 1e-4): fused int8 decodes through one K2 launch for wqkv and
+    one for wo, and K3's fused mode; dense and int4 weights take the plain
+    matmuls (no K2/K3 launch), attention K1."""
+    from kalle_tpu_torch.core.config import LlasaConfig
+    from kalle_tpu_torch.models.lm import llasa
+    from kalle_tpu_torch.ops.quant import fuse_decode_params, quantize_llama_params
+
+    cfg = LlasaConfig.tiny()
+    params = llasa.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    if layout.startswith("int"):
+        params = quantize_llama_params(params, bits=4 if "4" in layout else 8, group=32)
+    if layout.endswith("fused"):
+        params = fuse_decode_params(params)
+    ids = torch.randint(0, 300, (3, 9), generator=torch.Generator().manual_seed(1))
+    mask = torch.ones_like(ids)
+    mask[1, :4] = 0
+    before = _build.launches()
+    ref, got = _generate_both(cfg, params, ids, mask, 8)
+    after = _build.launches()
+    k2k3 = layout == "int8_fused"
+    for name, n in ((k23.NAME_QMM, 2 * 2 * 8 if k2k3 else 0), (k23.NAME_MLP, 0),
+                    (k23.NAME_MLP_GU, 2 * 8 if k2k3 else 0), (k1.NAME, 2 * 8)):
+        assert after.get(name, 0) - before.get(name, 0) == n, name
     assert torch.equal(got.n_frames.cpu(), ref.n_frames)
     torch.testing.assert_close(got.means.cpu(), ref.means, atol=1e-4, rtol=1e-4)
 

@@ -197,7 +197,8 @@ def test_infer_cli_on_cpu(tiny_yaml, tmp_path, capsys):
 
 def test_reference_checkpoint_raises(tiny_yaml, tmp_path):
     meta = _write_rows(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="A9"):
+    # a reference .pt is read now (tests/test_torch_convert.py); a missing one raises
+    with pytest.raises(FileNotFoundError):
         cli.main(["-c", tiny_yaml, "-i", meta, "-p", str(tmp_path / "llasa.pt"),
                   "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="A10"):

@@ -20,6 +20,7 @@ from kalle_tpu_torch import bridge
 from kalle_tpu_torch.core.config import LlamaConfig, LlasaConfig
 from kalle_tpu_torch.infer.generate import generate
 from kalle_tpu_torch.infer.serve_loop import ContinuousBatcher
+from kalle_tpu_torch.ops.quant import fuse_decode_params
 
 MAXF = 6
 TOL = dict(rtol=2e-3, atol=2e-4)
@@ -210,8 +211,7 @@ def test_what_waits_raises(setup):
     _, _, tcfg, tp, prompts = setup
     with pytest.raises(NotImplementedError):
         ContinuousBatcher(tp, tcfg, mesh=object(), device="cpu", **KW)
-    fused = dict(tp, llama=dict(tp["llama"], layers=dict(tp["llama"]["layers"], wqkv=None)))
-    with pytest.raises(NotImplementedError):
-        ContinuousBatcher(fused, tcfg, device="cpu", **KW)
+    # the fused decode layout no longer waits: it serves (tests/test_torch_quant_fused.py)
+    ContinuousBatcher(fuse_decode_params(tp), tcfg, device="cpu", **KW)
     with pytest.raises(ValueError):
         ContinuousBatcher(tp, tcfg, device="cpu", **KW).run([np.ones(17, np.int32)])
