@@ -76,6 +76,30 @@ Phases (any failure exits nonzero and prints no result):
      and a small f32 fused batcher against its unfused one (1e-3); (e) int4
      (group 128): 16 frames at batch 32 beside int8 (the plain group-wise
      route), a small f32 int4 model card vs CPU (1e-3).
+  8. the other codecs, CFG and streaming at full width (phase 3's int8
+     backbone; heads, codecs and conditioning from a seeded generator): (a)
+     InferTools.synthesize_batch of 8 texts (20-120 byte ids) at 128
+     frames through the default Oobleck (bf16, 44.1 kHz stereo, a stableaudio
+     head): every wav finite, |x| <= 1, n_frames x 2048 samples (wall, RTF,
+     codec ms), and a 4 s clip through encode_audio (the encoder's frame
+     formula; ms); (b) the same through MelVAEConfig() (bf16, 16 kHz, a
+     melvae head of latent 512) with flow_reverse, after the flow's forward
+     then reverse on the card in f32 (1e-4); (c) cfg_generate v1 and v2 on
+     (a)'s model at batch 1, 32 text ids, 128 frames, threshold 0 (ms a
+     step); (d) stream_generate at batch 8, 32 text ids, 128 steps at
+     melvae_dim2048_tts_sft's shape (latent 1024): a speaker frame from a
+     4 s 16 kHz reference (mel, 200 frames, ECAPA at EcapaConfig(), the
+     speaker VAE's draw), warm-up latents from a frame of silence through a
+     latent-1024 mel-VAE, then the decode (ms a step, ECAPA ms); (e)
+     stream_spkvae_forward and its gradient at phase 4's shape (f32 params,
+     bf16, flash: K5-K7 16 launches each, finite loss and grads) and one
+     MRTE forward at MRTEConfig(); (f) small f32 models on the card against
+     the CPU (1e-3): a tiny Oobleck and MelVAEConfig.tiny() (encode, decode,
+     both flow directions), a tiny ECAPA and MRTE, cfg_generate v1/v2 and
+     stream_generate of a small int8 model with the same injected noise.
+     (a)-(d) check K1-K3's launches exactly (K4 none); after the counted
+     runs, one profiled codec decode each in (a) and (b), 32 frames of
+     (c) v1 and 32 steps of (d) print device time by kernel and busy share.
 
 Phase 1 fails if a bf16 instance of K1, K3 or K4 (or K6/K7 at hd 64) spills.
 Phase 2 holds K3 at M 8, 32 and 72 (1e-2 relative) and K4 at the five
@@ -107,8 +131,8 @@ fused mode bit-identical to the unfused K3, K2's within bf16 tolerance of
 three launches, both reruns bit-identical, K2 beside `torch.matmul`. Launch counts: K1-K3 from
 phase 3's run, K4 from phase 3's and phase 6's counted runs, K5-K7 from
 phase 4's, K1's sideband from phase 5's batch-32 run, each plus phase 7's
-counted runs; the fused layout's K2 and K3 rows from phase 7's fused
-generate runs.
+counted runs and phase 8's ((a)-(d) for K1-K3, (e) for K5-K7); the fused
+layout's K2 and K3 rows from phase 7's fused generate runs.
 
 Prints a `kernels` JSON line, the card line, and as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
@@ -2267,6 +2291,442 @@ def closure_int4(card: str) -> None:
         f"{err:.3g} (limit 1e-3)")
 
 
+# --------------------------------------------------------------- phase 8 ----
+
+# (a)/(b): texts and frames; (c): text ids and frames; (d): batch, text ids
+# and steps; the reference voice's seconds and rate (phase 6's)
+CODEC_ROWS, CODEC_FRAMES = 8, 128
+CFG_TEXT, CFG_FRAMES = 32, 128
+STREAM_B, STREAM_TEXT, STREAM_STEPS = 8, 32, 128
+K1_K3 = ("decode_attention", "qmm", "fused_mlp")
+
+
+def with_heads(backbone: dict, cfg, g, dev="cuda", ecapa_cfg=None) -> dict:
+    """`backbone` (a llama param tree) under heads drawn from `g`: llasa's
+    MLP head when `ecapa_cfg` is None, else the variants' Linear head, its
+    audio_linear, the speaker VAE's linear and ECAPA at `ecapa_cfg` (f32).
+    The heads are initialised under a one-layer stand-in backbone, which is
+    thrown away."""
+    from kalle_tpu_torch.bridge import tree_map
+    from kalle_tpu_torch.core.config import LlamaConfig, torch_dtype
+    from kalle_tpu_torch.models.lm import llasa, variants
+
+    stand_in = dataclasses.replace(cfg, llama=LlamaConfig(
+        vocab_size=8, hidden_size=64, intermediate_size=64, num_layers=1, num_heads=1,
+        num_kv_heads=1, head_dim=64))
+    if ecapa_cfg is None:
+        params = llasa.init_params(stand_in, g, dev)
+    else:
+        params = variants.init_variant_params(stand_in, g, ecapa_cfg, speaker_vae=True,
+                                              device=dev)
+    dt = torch_dtype(cfg.llama.dtype)
+    for name in ("audio_linear", "distribution_linear"):
+        params[name] = tree_map(lambda t: t.to(dt), params[name])
+    params["llama"] = backbone
+    return params
+
+
+def encoded_frames(kind: str, cfg, t: int) -> int:
+    """Frames the JAX package's encoder gives for t samples: each strided
+    conv of kernel 2s gives (t + 2 pad - 2s) // s + 1 (Oobleck pads
+    ceil(s/2), the mel-VAE (2s-1)//2); the other convs keep the length."""
+    if kind == "stableaudio":
+        for s in cfg.strides:
+            t = (t + 2 * math.ceil(s / 2) - 2 * s) // s + 1
+    else:
+        for f in cfg.downsample_rates:
+            t = (t + 2 * ((2 * f - 1) // 2) - 2 * f) // f + 1
+    return t
+
+
+def reference_voice(sr: int, seconds: int, channels: int, rng) -> np.ndarray:
+    """A synthetic voice-like reference (1, channels, seconds * sr) f32."""
+    t = np.arange(seconds * sr) / sr
+    x = np.sin(2 * np.pi * 180 * t) * (0.3 + 0.2 * np.sin(3 * t)) + rng.normal(0, 0.01, t.size)
+    return np.repeat(x[None, None].astype(np.float32), channels, axis=1)
+
+
+def _counted(fn):
+    """fn() with the launch counts set to 0 just before; (result, counts)."""
+    from kalle_tpu_torch.ops.kernels import _build
+
+    _build.reset_launches()
+    out = fn()
+    return out, _build.launches()
+
+
+def p8_codec(card: str, kind: str, backbone: dict, texts: list, g, dev="cuda",
+             lm_cfg=None, codec_cfg=None):
+    """(a)/(b): InferTools.synthesize_batch of `texts` through the
+    stableaudio or melvae codec (bf16; melvae with flow_reverse), then a
+    4 s clip through encode_audio. Returns (the LM's cfg and params, the
+    launches of the counted run)."""
+    from kalle_tpu_torch.data.tokens import ByteTokenizer, build_prompt_ids
+    from kalle_tpu_torch.infer import pipeline
+    from kalle_tpu_torch.infer.pipeline import Codec, InferTools
+    from kalle_tpu_torch.models.codecs import melvae
+
+    stable = kind == "stableaudio"
+    cfg = lm_cfg or (dataclasses.replace(flagship(), head_variant="stableaudio") if stable else
+                     dataclasses.replace(flagship(), latent_dim=512, head_variant="melvae"))
+    params = with_heads(backbone, cfg, g, dev)
+    codec = Codec.random_init(kind, g, dev, **({"cfg": codec_cfg} if codec_cfg else {}))
+    if not stable:
+        # the flow's couplings start at the identity (post = 0): give them
+        # weights, then check forward then reverse on the card in f32
+        for f in codec.params["flows"]:
+            f["post"]["w"] = 0.02 * torch.randn(f["post"]["w"].shape, generator=g, device=dev)
+        z = torch.randn(2, codec.cfg.latent_dim, 50, generator=g, device=dev)
+        fwd = melvae.flow(codec.params, codec.cfg, z)
+        err = _max_err(melvae.flow(codec.params, codec.cfg, fwd, reverse=True), z)
+        moved = _max_err(fwd, z)
+        log(f"  melvae flow on the card (f32): reverse(forward(z)) max_abs_err {err:.3g} "
+            f"(limit 1e-4; forward moved z by {moved:.3g})")
+        if err > 1e-4 or moved < 1e-3:
+            raise AssertionError("the mel-VAE flow does not invert on the card")
+    codec.astype(torch.bfloat16)
+    spf, sr = codec.samples_per_frame, codec.sample_rate
+    channels = 2 if stable else 1
+    with tempfile.TemporaryDirectory() as root:  # InferTools makes its output dir
+        it = InferTools(cfg, params, ByteTokenizer(), codec, output_root=root,
+                        version=f"phase8{kind}", timestamp=False, flow_reverse=not stable)
+
+    results, codec_s = [], [0.0]
+    real_generate, real_decode = pipeline.generate, codec.decode_latents
+
+    def spy_generate(*a, **kw):
+        results.append(real_generate(*a, **kw))
+        return results[-1]
+
+    def timed_decode(*a, **kw):
+        t0 = time.perf_counter()
+        out = real_decode(*a, **kw)  # ends in a host copy: synchronised
+        codec_s[0] += time.perf_counter() - t0
+        return out
+
+    pipeline.generate, codec.decode_latents = spy_generate, timed_decode
+    try:
+        for run in range(2):  # the first warms this batch's shapes
+            results.clear()
+            codec_s[0] = 0.0
+            t0 = time.perf_counter()
+            wavs, counts = _counted(lambda: it.synthesize_batch(
+                texts, max_frames=CODEC_FRAMES, batch_size=len(texts)))
+            wall = time.perf_counter() - t0
+    finally:
+        pipeline.generate = real_generate
+        codec.decode_latents = real_decode
+    res = results[0]
+    n_frames = res.n_frames.cpu()
+    steps = int(n_frames.max()) + 1
+    L = cfg.llama.num_layers
+    check_launches(f"{kind} synthesize_batch", counts,
+                   {"decode_attention": L * steps, "qmm": 4 * L * steps, "fused_mlp": L * steps})
+    ids = [build_prompt_ids(it.tokenizer, t) for t in texts]
+    order = sorted(range(len(texts)), key=lambda i: len(ids[i]))
+    for r, i in enumerate(order):
+        want = (channels, max(int(n_frames[r]), 1) * spf)
+        w = wavs[i]
+        if w.shape != want or not np.isfinite(w).all() or np.abs(w).max() > 1.0:
+            raise AssertionError(f"{kind} wav {i}: {w.shape} (want {want}), "
+                                 f"max |x| {np.abs(w).max():.3g}")
+    audio_s = sum(w.shape[-1] for w in wavs) / sr
+    log(f"{kind} synthesize_batch rows {len(texts)} wall_s {wall:.4f} rtf {wall / audio_s:.6g} "
+        f"audio_s {audio_s:.2f} codec_ms {codec_s[0] * 1e3:.3f} steps {steps} "
+        f"n_frames {sorted(set(n_frames.tolist()))} (second run; sr {sr}, {channels} ch, "
+        f"{spf} samples a frame) card {card}")
+
+    clip = reference_voice(sr, PROMPT_S, channels, np.random.default_rng(8))
+    codec.encode_audio(clip)  # warm-up
+    t0 = time.perf_counter()
+    for _ in range(ITERS):
+        z = codec.encode_audio(clip)
+    enc_ms = (time.perf_counter() - t0) / ITERS * 1e3
+    want = (1, 2 * codec.cfg.latent_dim, encoded_frames(kind, codec.cfg, clip.shape[-1]))
+    if z.shape != want or not np.isfinite(z).all():
+        raise AssertionError(f"{kind} encode_audio gave {z.shape}, want {want}")
+    log(f"{kind} encode_audio {PROMPT_S} s clip ({sr} Hz, {channels} ch, bf16): ms {enc_ms:.3f} "
+        f"shape {z.shape} (host clock, H2D and D2H included) card {card}")
+    if dev == "cuda":
+        lat = it._latents_for_decode(res, slice(0, CODEC_FRAMES))
+        with_profile(lambda: codec.decode_latents(lat, flow_reverse=not stable),
+                     f"the {kind} decode of {len(texts)} x {CODEC_FRAMES} frames")
+    return cfg, params, counts
+
+
+def p8_cfg(card: str, cfg, params: dict, g, dev="cuda", frames=CFG_FRAMES):
+    """(c) cfg_generate v1 and v2 at batch 1: every frame runs (threshold
+    0), two branches a step. Returns the counted runs' launches."""
+    from kalle_tpu_torch.infer.cfg import cfg_generate
+
+    ids = torch.randint(0, 128255 if dev == "cuda" else cfg.llama.vocab_size, (1, CFG_TEXT),
+                        generator=g, device=dev)
+    L = cfg.llama.num_layers
+    total: dict = {}
+    for variant in ("v1", "v2"):
+        cfg_generate(params, cfg, ids, g, max_frames=8, cfg_variant=variant,
+                     end_kl_threshold=0.0)  # warm-up
+        sync(dev)
+        t0 = time.perf_counter()
+        res, counts = _counted(lambda: cfg_generate(params, cfg, ids, g, max_frames=frames,
+                                                    cfg_variant=variant, end_kl_threshold=0.0))
+        sync(dev)
+        ms = (time.perf_counter() - t0) / frames * 1e3
+        check_launches(f"cfg_generate {variant}", counts,
+                       {"decode_attention": 2 * L * frames, "qmm": 2 * 4 * L * frames,
+                        "fused_mlp": 2 * L * frames})
+        if int(res.n_frames[0]) != frames - 1 or not torch.isfinite(res.samples).all():
+            raise AssertionError(f"cfg_generate {variant}: n_frames {res.n_frames.tolist()}")
+        log(f"cfg_generate {variant} batch 1 text {CFG_TEXT} frames {frames} ms_per_step "
+            f"{ms:.4f} (two branches a step, prefills included) card {card}")
+        _add(total, counts)
+    if dev == "cuda":
+        with_profile(lambda: cfg_generate(params, cfg, ids, g, max_frames=32,
+                                          end_kl_threshold=0.0), "cfg_generate v1, 32 frames")
+    return total
+
+
+def p8_stream(card: str, backbone: dict, g, dev="cuda", lm_cfg=None, codec_cfg=None,
+              ecapa_cfg=None, steps=STREAM_STEPS):
+    """(d) streaming with the speaker VAE at melvae_dim2048_tts_sft's shape:
+    a 4 s 16 kHz reference -> mel -> 200 frames -> ECAPA -> a sampled
+    speaker frame; warm-up latents from one frame of silence through the
+    mel-VAE's encoder; stream_generate at batch STREAM_B, then the decode.
+    Returns the counted run's launches."""
+    from kalle_tpu_torch.infer.pipeline import Codec
+    from kalle_tpu_torch.infer.streaming import (sample_speaker_cond, stream_generate,
+                                                 warmup_latents_from_silence)
+    from kalle_tpu_torch.models.conditioning.ecapa import EcapaConfig
+    from kalle_tpu_torch.models.lm.variants import speaker_embedding
+    from kalle_tpu_torch.ops.mel import mel_spectrogram, modify_vector
+
+    cfg = lm_cfg or dataclasses.replace(flagship(), latent_dim=1024, head_variant="melvae")
+    ecapa_cfg = ecapa_cfg or EcapaConfig()
+    params = with_heads(backbone, cfg, g, dev, ecapa_cfg=ecapa_cfg)
+    codec = Codec.random_init("melvae", g, dev,
+                              **({"cfg": codec_cfg} if codec_cfg else {"latent_dim": 1024}))
+    codec.astype(torch.bfloat16)
+    d, h, sr = cfg.latent_dim, cfg.audio_proj_dim, codec.sample_rate
+    ref = torch.from_numpy(reference_voice(sr, PROMPT_S, 1, np.random.default_rng(9))[0]).to(dev)
+    mel = modify_vector(mel_spectrogram(ref, sample_rate=sr), 200)  # (1, 80, 200)
+    speaker_embedding(params, ecapa_cfg, mel)  # warm-up
+    sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(ITERS):
+        spk = speaker_embedding(params, ecapa_cfg, mel)
+    sync(dev)
+    ecapa_ms = (time.perf_counter() - t0) / ITERS * 1e3
+    cond = sample_speaker_cond(params, g, h, spk).expand(STREAM_B, h)
+    hop_hz = sr / codec.samples_per_frame
+    warm = warmup_latents_from_silence(codec.encode_audio, 1, sr, hop_hz, batch=STREAM_B,
+                                       device=dev)  # (b, 2d, 1) mean||logs
+    prompt = torch.from_numpy(warm[:, :d]).transpose(1, 2).to(dev)  # the means, (b, 1, d)
+    ids = torch.randint(0, 128255 if dev == "cuda" else cfg.llama.vocab_size,
+                        (STREAM_B, STREAM_TEXT), generator=g, device=dev)
+    stream_generate(params, cfg, ids, prompt, cond, g, max_steps=8, end_kl_threshold=0.0)
+    sync(dev)
+    t0 = time.perf_counter()
+    res, counts = _counted(lambda: stream_generate(params, cfg, ids, prompt, cond, g,
+                                                   max_steps=steps, end_kl_threshold=0.0))
+    sync(dev)
+    ms = (time.perf_counter() - t0) / steps * 1e3
+    L = cfg.llama.num_layers
+    check_launches("stream_generate", counts, {"decode_attention": L * steps,
+                                               "qmm": 4 * L * steps, "fused_mlp": L * steps})
+    t0 = time.perf_counter()
+    wav = codec.decode_latents(res.samples)
+    dec_ms = (time.perf_counter() - t0) * 1e3
+    want = (STREAM_B, 1, steps * codec.samples_per_frame)
+    if (tuple(res.n_frames.tolist()) != (steps - 1,) * STREAM_B or wav.shape != want
+            or not np.isfinite(wav).all() or tuple(cond.shape) != (STREAM_B, h)):
+        raise AssertionError(f"streaming: n_frames {res.n_frames.tolist()}, wav {wav.shape}")
+    log(f"stream_generate batch {STREAM_B} text {STREAM_TEXT} steps {steps} ms_per_step "
+        f"{ms:.4f} (prefill included) ecapa_ms {ecapa_ms:.3f} (batch 1, 200 frames) "
+        f"codec_decode_ms {dec_ms:.3f} card {card}")
+    if dev == "cuda":
+        with_profile(lambda: stream_generate(params, cfg, ids, prompt, cond, g, max_steps=32,
+                                             end_kl_threshold=0.0),
+                     f"stream_generate, batch {STREAM_B}, 32 steps")
+    return counts
+
+
+def p8_variant_forward(card: str, g, dev="cuda", cfg=None, ecapa_cfg=None, t=TRAIN_T,
+                       b=TRAIN_B, mrte_cfg=None):
+    """(e) stream_spkvae_forward and its gradient at phase 4's shape (f32
+    params, bf16 compute, flash on), then one MRTE forward. Returns the
+    counted run's launches."""
+    from kalle_tpu_torch.bridge import tree_leaves
+    from kalle_tpu_torch.core.config import LlamaConfig, LlasaConfig
+    from kalle_tpu_torch.models.conditioning import mrte
+    from kalle_tpu_torch.models.conditioning.ecapa import EcapaConfig
+    from kalle_tpu_torch.models.lm import variants
+    from kalle_tpu_torch.ops.mel import mel_spectrogram
+
+    cfg = cfg or LlasaConfig(llama=LlamaConfig(use_flash_attention=True), latent_dim=1024,
+                             audio_proj_dim=2048, head_variant="melvae")
+    ecapa_cfg = ecapa_cfg or EcapaConfig()
+    params = variants.init_variant_params(cfg, g, ecapa_cfg, speaker_vae=True, device=dev)
+    leaves = [x.requires_grad_(True) for x in tree_leaves(params)]
+    d, n = cfg.latent_dim, t - 1  # the speaker frame makes t
+    r = lambda *s: torch.randn(s, generator=g, device=dev)
+    bos_mask = torch.zeros(b, n, dtype=torch.bool, device=dev)
+    bos_mask[:, 0] = True
+    end = torch.zeros(b, n, dtype=torch.bool, device=dev)
+    end[:, -1] = True
+    batch = {"input_ids": torch.randint(0, cfg.llama.vocab_size, (b, n), generator=g, device=dev),
+             "audio_latents": r(b, n, d), "distribute_labels": torch.cat([r(b, n, d),
+                                                                          0.1 * r(b, n, d) - 1], -1),
+             "bos_token": torch.full((b, 1), 7, device=dev), "bos_mask": bos_mask,
+             "attention_mask": torch.ones(b, n, dtype=torch.int32, device=dev),
+             "target_mask": ~end, "end_mask": end, "mels": r(b, ecapa_cfg.in_channels, 200)}
+
+    def step():
+        out = variants.stream_spkvae_forward(params, cfg, batch, ecapa_cfg, g)
+        loss = out["audio_loss"] + 0.2 * out["end_loss"] + 0.1 * out["speaker_cond_kl"]
+        loss.backward()
+        return out, loss
+
+    sync(dev)
+    t0 = time.perf_counter()
+    (out, loss), counts = _counted(step)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    L = cfg.llama.num_layers
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        if dev == "cuda" and counts.get(name, 0) != L:
+            raise AssertionError(f"stream_spkvae_forward: {name} {counts.get(name, 0)} "
+                                 f"launches, the path implies {L}")
+    grads_ok = all(x.grad is not None and bool(torch.isfinite(x.grad).all())
+                   for x in leaves if x.is_floating_point())
+    if not (torch.isfinite(loss) and grads_ok):
+        raise AssertionError(f"stream_spkvae_forward: loss {float(loss)}, grads finite {grads_ok}")
+    log(f"  (e) stream_spkvae_forward + backward batch {b} x {t} (f32 params, bf16, flash): "
+        f"s {wall:.3f} (first call) loss {float(loss.detach()):.4g} speaker_cond_kl "
+        f"{float(out['speaker_cond_kl'].detach()):.4g}; launches "
+        + json.dumps({k: counts.get(k, 0) for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}))
+    del params, leaves, batch, out, loss
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+
+    mcfg = mrte_cfg or mrte.MRTEConfig()
+    mp = mrte.init_params(mcfg, g, dev)
+    ref = torch.from_numpy(reference_voice(16000, PROMPT_S, 1, np.random.default_rng(9))[0])
+    mel = mel_spectrogram(ref.to(dev))[:, :mcfg.mel_bins]  # (1, 80, frames)
+    with torch.no_grad():
+        cond, tc = mrte.forward(mp, mcfg, mel, r(1, 32, mcfg.hidden_size))
+    if (tuple(cond.shape) != (1, 2048) or tuple(tc.shape) != (1, 32, mcfg.hidden_size)
+            or not (torch.isfinite(cond).all() and torch.isfinite(tc).all())):
+        raise AssertionError(f"mrte.forward: {tuple(cond.shape)} {tuple(tc.shape)}")
+    log(f"  (e) mrte.forward at MRTEConfig() on a {mel.shape[-1]}-frame mel and 32 phone "
+        f"frames: mel_cond {tuple(cond.shape)} tc {tuple(tc.shape)}, finite")
+    del mp
+    return counts
+
+
+def sync(dev):
+    if dev == "cuda":
+        torch.cuda.synchronize()
+
+
+def p8_small_reference():
+    """(f) Small f32 models on the card (TF32 off) against the port's CPU
+    path: a tiny Oobleck and MelVAEConfig.tiny() (encode, decode, both flow
+    directions), a tiny ECAPA and MRTE, and cfg_generate v1/v2 and
+    stream_generate of a tiny int8 model with the same injected noise."""
+    from kalle_tpu_torch.bridge import tree_map
+    from kalle_tpu_torch.core.config import LlamaConfig, LlasaConfig
+    from kalle_tpu_torch.infer.cfg import cfg_generate
+    from kalle_tpu_torch.infer.pipeline import Codec
+    from kalle_tpu_torch.infer.streaming import stream_generate
+    from kalle_tpu_torch.models.codecs import melvae, oobleck
+    from kalle_tpu_torch.models.conditioning import ecapa, mrte
+    from kalle_tpu_torch.models.lm import llasa, variants
+    from kalle_tpu_torch.ops.quant import quantize_llama_params
+
+    g = torch.Generator().manual_seed(10)
+    rnd = lambda *s: torch.randn(s, generator=g)
+    oob = oobleck.OobleckConfig(channels=8, latent_dim=8, encoder_out_dim=16, c_mults=(1, 2, 4),
+                                strides=(2, 4, 4))
+    mcfg = melvae.MelVAEConfig.tiny()
+    codecs = {"stableaudio": Codec.random_init("stableaudio", g, "cpu", cfg=oob),
+              "melvae": Codec.random_init("melvae", g, "cpu", cfg=mcfg)}
+    for f in codecs["melvae"].params["flows"]:
+        f["post"]["w"] = 0.1 * rnd(*f["post"]["w"].shape)
+    ecfg, rcfg = ecapa.EcapaConfig.tiny(), mrte.MRTEConfig.tiny()
+    ep = ecapa.init_params(ecfg, g, "cpu")
+    rp = mrte.init_params(rcfg, g, "cpu")
+    llama = LlamaConfig(vocab_size=300, hidden_size=256, intermediate_size=512, num_layers=2,
+                        num_heads=4, num_kv_heads=2, head_dim=64, dtype="float32")
+    cfg = LlasaConfig(llama=llama, latent_dim=16, audio_proj_dim=256, head_variant="melvae")
+    lp = quantize_llama_params(llasa.init_params(cfg, g, "cpu"))
+    vp = dict(lp, **{k: v for k, v in variants.init_variant_params(
+        dataclasses.replace(cfg, llama=LlamaConfig.tiny()), g, ecfg, device="cpu").items()
+        if k in ("audio_linear", "distribution_linear")})
+    inputs = {"wav2": 0.3 * rnd(2, 2, 40 * oob.downsampling_ratio),
+              "wav1": 0.3 * rnd(2, 1, 40 * mcfg.hop), "lat": rnd(2, 12, 8),
+              "mel": rnd(2, 30, ecfg.in_channels), "rmel": rnd(2, rcfg.mel_bins, 41),
+              "phone": rnd(2, 7, rcfg.hidden_size), "ids": torch.randint(0, 300, (1, 9), generator=g),
+              "sids": torch.randint(0, 300, (3, 11), generator=g), "warm": rnd(3, 2, 16),
+              "spk": rnd(3, 256), "noise": rnd(3, 8, 16)}
+    out = {}
+    for dev in ("cpu", "cuda"):
+        mv = lambda tree: tree_map(lambda t: t.to(dev), tree)
+        x = mv(inputs)
+        sa = Codec("stableaudio", oob, mv(codecs["stableaudio"].params))
+        mc = Codec("melvae", mcfg, mv(codecs["melvae"].params))
+        z = x["lat"].transpose(1, 2)
+        o = {"oobleck encode": sa.encode_audio(x["wav2"]),
+             "oobleck decode": sa.decode_latents(x["lat"]),
+             "melvae encode": mc.encode_audio(x["wav1"]),
+             "melvae decode": mc.decode_latents(x["lat"]),
+             "melvae flow": melvae.flow(mc.params, mcfg, z),
+             "melvae flow reverse": melvae.flow(mc.params, mcfg, z, reverse=True),
+             "ecapa": ecapa.forward(mv(ep), ecfg, x["mel"])}
+        with torch.no_grad():
+            o["mrte cond"], o["mrte tc"] = mrte.forward(mv(rp), rcfg, x["rmel"], x["phone"])
+        for v in ("v1", "v2"):
+            res = cfg_generate(mv(lp), cfg, x["ids"], max_frames=8, cfg_variant=v,
+                               end_kl_threshold=0.0, noise=x["noise"][:1])
+            o[f"cfg {v}"] = res.samples
+        res = stream_generate(mv(vp), cfg, x["sids"], x["warm"], x["spk"], max_steps=8,
+                              end_kl_threshold=0.0, noise=x["noise"])
+        o["stream"] = res.samples
+        out[dev] = {k: torch.as_tensor(v).cpu().float() for k, v in o.items()}
+    errs = {k: _max_err(out["cuda"][k], out["cpu"][k]) / max(1.0, float(out["cpu"][k].abs().max()))
+            for k in out["cpu"]}
+    log("  (f) small f32 models, card vs CPU, max_abs_err / max(1, max |ref|): "
+        + " ".join(f"{k} {e:.3g}" for k, e in errs.items()) + " (limit 1e-3)")
+    bad = [k for k, e in errs.items() if not e <= 1e-3]
+    if bad:
+        raise AssertionError(f"card disagrees with the CPU path: {bad}")
+
+
+def phase_codecs(card: str) -> dict:
+    """Phase 8: the Oobleck and mel-VAE codecs through InferTools, CFG and
+    streaming generation, the variant forward and MRTE at full width, and
+    small f32 models card vs CPU. Returns the launches of its counted
+    runs."""
+    log("# phase 8: stableaudio and melvae codecs, CFG, streaming, variants, conditioning")
+    counts: dict = {}
+    g = torch.Generator(device="cuda").manual_seed(8)
+    backbone = flagship_int8(torch.Generator(device="cuda").manual_seed(0))["llama"]  # phase 3's
+    texts = serve_texts(CODEC_ROWS, np.random.default_rng(8))
+    cfg_a, params_a, c = p8_codec(card, "stableaudio", backbone, texts, g)
+    _add(counts, c)
+    torch.cuda.empty_cache()
+    _add(counts, p8_codec(card, "melvae", backbone, texts, g)[2])
+    torch.cuda.empty_cache()
+    _add(counts, p8_cfg(card, cfg_a, params_a, g))
+    del params_a
+    _add(counts, p8_stream(card, backbone, g))
+    del backbone
+    torch.cuda.empty_cache()
+    _add(counts, p8_variant_forward(card, g))
+    torch.cuda.empty_cache()
+    p8_small_reference()
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2292,6 +2752,10 @@ def main() -> int:
         launches[name] = launches.get(name, 0) + p7.get(name, 0)
     # the fused layout's rows: K2 and K3's fused mode in phase 7's fused generate runs
     launches["qmm_wqkv"], launches["fused_mlp_gu"] = p7["qmm"], p7["fused_mlp_gu"]
+    p8 = phase_codecs(card)
+    for name in ("decode_attention", "qmm", "fused_mlp", "flash_fwd", "flash_bwd_dq",
+                 "flash_bwd_dkv"):
+        launches[name] = launches.get(name, 0) + p8.get(name, 0)
     for r in rows:
         r["launches"] = launches.get(r["name"], 0)
         r["route"] = "cuda"

@@ -75,6 +75,15 @@ def params_to_numpy(tree: Any) -> Any:
     return leaf(tree)
 
 
+def state_array(v: Any) -> np.ndarray:
+    """A torch state-dict entry (a torch tensor or a numpy array) -> an f32
+    numpy array on the host, for the importers that fold and transpose
+    weights in numpy before `params_from_jax`."""
+    if isinstance(v, torch.Tensor):
+        return v.detach().to(torch.float32).cpu().numpy()
+    return np.asarray(v, np.float32)
+
+
 def tree_leaves(tree: Any) -> list:
     """The tensor leaves of a nested dict/list tree, in a fixed order
     (dict insertion order, depth first)."""

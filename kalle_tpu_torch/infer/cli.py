@@ -6,9 +6,12 @@
 For each jsonl row, writes {utt}.txt, {utt}---copysyn.wav and
 {utt}---gen.wav through `InferTools.infer_jsonl` into
 {out_root}/{project_name}-{checkpoint name}-{timestamp}, on the card unless
---device says otherwise. Without -p the Llasa is a random init; the codec
-is a random sigma codec (no pretrained codec loader is ported). Prints
-`wrote N files to DIR`, then the hand-written kernels' launch counts.
+--device says otherwise. Without -p the Llasa is a random init. The codec
+(--codec-kind sigma, stableaudio or melvae) loads from --codec-config and
+--codec-ckpt (stableaudio: model_config.json and .safetensors / .pt;
+melvae: h-config JSON and g_* checkpoint; sigma has no loader), else it is
+a random one. Prints `wrote N files to DIR`, then the hand-written
+kernels' launch counts.
 """
 from __future__ import annotations
 
@@ -44,11 +47,14 @@ def main(argv=None) -> None:
     cfg = exp.model
     params = load_llasa_params(args.checkpoint, cfg, args.device, args.seed)
     if args.codec_config and args.codec_ckpt:
-        codec = Codec.load(args.codec_kind, args.codec_config, args.codec_ckpt)
+        codec = Codec.load(args.codec_kind, args.codec_config, args.codec_ckpt,
+                           device=args.device)
     else:
         print("WARNING: no codec checkpoint — random codec (smoke mode)")
+        extra = ({"encoder_out_dim": 2 * cfg.latent_dim}
+                 if args.codec_kind == "stableaudio" else {})
         codec = Codec.random_init(args.codec_kind, device=args.device,
-                                  latent_dim=cfg.latent_dim)
+                                  latent_dim=cfg.latent_dim, **extra)
 
     it = InferTools(cfg, params, tokenizer, codec, output_root=args.output_root,
                     version=exp.project_name,

@@ -9,8 +9,9 @@ and {utt}---gen.wav (generated from the caption), into
 KV-cached decode (infer/generate.py) over prompts packed into left-padded
 length buckets.
 
-Only the "sigma" codec is ported; the stableaudio and melvae codecs are
-not yet.
+`Codec` covers the three codec families: "sigma" (SigmaVAE, 24 kHz),
+"stableaudio" (Oobleck, 44.1 kHz stereo) and "melvae" (the mel-VAE, 16
+kHz, whose LMs may predict flow-space latents: `flow_reverse`).
 """
 from __future__ import annotations
 
@@ -21,21 +22,26 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..bridge import tree_map
+from ..bridge import tree_leaves, tree_map
 from ..core.config import LlasaConfig
-from ..data.datasets import load_sigma_latent, read_jsonl
+from ..data.datasets import load_sigma_latent, load_stableaudio_latent, read_jsonl
 from ..data.tokens import build_prompt_ids
-from ..models.codecs import sigmavae
+from ..models.codecs import melvae, oobleck, sigmavae
 from ..utils.audio import write_wav
 from .generate import generate
 
 
+_MODULES = {"sigma": (sigmavae, sigmavae.SigmaVAEConfig),
+            "stableaudio": (oobleck, oobleck.OobleckConfig),
+            "melvae": (melvae, melvae.MelVAEConfig)}
+
+
 class Codec:
-    """Uniform facade over the codec families (sigma only so far)."""
+    """Uniform facade over the three codec families."""
 
     def __init__(self, kind: str, cfg, params):
-        if kind != "sigma":
-            raise ValueError(f"codec {kind!r} is not ported (sigma only)")
+        if kind not in _MODULES:
+            raise ValueError(f"unknown codec {kind!r}")
         self.kind = kind
         self.cfg = cfg
         self.params = params
@@ -48,52 +54,79 @@ class Codec:
     @property
     def samples_per_frame(self) -> int:
         """Audio samples produced per latent frame."""
-        return int(self.cfg.hop)
+        if self.kind == "stableaudio":
+            return int(self.cfg.downsampling_ratio)
+        return int(self.cfg.hop)  # sigma, melvae
 
     @property
     def device(self) -> torch.device:
-        return self.params["decoder"]["pre"]["w"].device
+        return tree_leaves(self.params)[0].device
 
     def astype(self, dtype) -> "Codec":
-        """Cast the codec params; bf16 sends the residual blocks through K4
-        on the card."""
+        """Cast the codec params; bf16 sends SigmaVAE's residual blocks
+        through K4 on the card (the other codecs have no kernel)."""
         self.params = tree_map(lambda t: t.to(dtype), self.params)
         self.dtype = dtype
         return self
 
-    def decode_latents(self, latents) -> np.ndarray:
-        """latents (B, T, d) -> host audio (B, 1, T_audio) as float32."""
+    def decode_latents(self, latents, flow_reverse: bool = False) -> np.ndarray:
+        """latents (B, T, d) -> host audio (B, C, T_audio) as float32.
+
+        flow_reverse (melvae only): the LM predicts FLOW-space latents, so
+        the coupling flow is inverted before the decoder. The codec draws
+        nothing: the mel-VAE decodes the latents as they are."""
         z = torch.as_tensor(latents, device=self.device).to(self.dtype)
-        return sigmavae.decode(self.params, self.cfg, z).float().cpu().numpy()
+        if self.kind == "sigma":
+            y = sigmavae.decode(self.params, self.cfg, z)
+        elif self.kind == "stableaudio":
+            y = oobleck.decode(self.params, self.cfg, z.transpose(1, 2))
+        else:
+            z = z.transpose(1, 2)
+            if flow_reverse:
+                z = melvae.flow(self.params, self.cfg, z, reverse=True)
+            y = melvae.inference_from_latents(self.params, self.cfg, z, do_sample=False)
+        return y.float().cpu().numpy()
 
     def encode_audio(self, wav) -> np.ndarray:
-        """wav (B, 1, T) or (B, T) at `sample_rate` -> host latent means
-        (B, T // hop, d) as float32."""
+        """wav at `sample_rate` -> host float32: sigma takes (B, 1, T) or
+        (B, T) and gives latent means (B, T // hop, d); stableaudio takes
+        (B, 2, T) and gives mean||scale (B, 2d, T // ratio); melvae takes
+        (B, 1, T) and gives mean||logs (B, 2d, T // hop)."""
         x = torch.as_tensor(wav, device=self.device).to(self.dtype)
-        return sigmavae.encode(self.params, self.cfg, x).float().cpu().numpy()
+        if self.kind == "sigma":
+            z = sigmavae.encode(self.params, self.cfg, x)
+        elif self.kind == "stableaudio":
+            z = oobleck.encode(self.params, self.cfg, x)
+        else:
+            z = melvae.extract_latents(self.params, self.cfg, x)
+        return z.float().cpu().numpy()
 
     @staticmethod
     def random_init(kind: str = "sigma", generator: Optional[torch.Generator] = None,
                     device="cuda", **overrides) -> "Codec":
         """Random f32 params; `generator` defaults to one seeded 0 on
         `device`. `cfg=` or config fields may be passed as overrides."""
-        if kind != "sigma":
-            raise ValueError(f"codec {kind!r} is not ported (sigma only)")
-        cfg = overrides.pop("cfg", None) or sigmavae.SigmaVAEConfig(**overrides)
+        if kind not in _MODULES:
+            raise ValueError(f"unknown codec {kind!r}")
+        mod, cfg_cls = _MODULES[kind]
+        cfg = overrides.pop("cfg", None) or cfg_cls(**overrides)
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
-        return Codec(kind, cfg, sigmavae.init_params(cfg, generator, device))
+        return Codec(kind, cfg, mod.init_params(cfg, generator, device))
 
     @staticmethod
-    def load(kind: str, config_path: str, ckpt_path: str) -> "Codec":
-        """Pretrained codec weights. Sigma has no pretrained loader (as in
-        the JAX package: its weights come through
-        `sigmavae.params_from_torch_state_dict`); the stableaudio and melvae
-        loaders come with their codecs (ROADMAP.md, A10)."""
-        if kind in ("stableaudio", "melvae"):
-            raise NotImplementedError(
-                f"codec {kind!r} is not ported yet (ROADMAP.md, A10)")
-        raise ValueError(f"no pretrained loader for {kind}")
+    def load(kind: str, config_path: str, ckpt_path: str, device="cuda") -> "Codec":
+        """Pretrained codec weights: stableaudio from a stable_audio_tools
+        model_config.json and its .safetensors / .pt, melvae from an
+        h-config JSON and a g_* checkpoint. Sigma has no pretrained loader
+        (its weights come through `sigmavae.params_from_torch_state_dict`)."""
+        if kind == "stableaudio":
+            cfg, params = oobleck.load_pretrained(config_path, ckpt_path, device)
+        elif kind == "melvae":
+            cfg, params = melvae.load_pretrained(config_path, ckpt_path, device)
+        else:
+            raise ValueError(f"no pretrained loader for {kind}")
+        return Codec(kind, cfg, params)
 
 
 class InferTools:
@@ -105,8 +138,14 @@ class InferTools:
     `synthesize_batch` draw `generate`'s noise (one (b, 1, d) normal a
     decode step), then, for a non-sigma head with `resample_std`, the
     resampling noise; `infer_jsonl` first draws each row's copysyn noise
-    (`sigmavae.sample`, (1, T, d)) in row order, then the generation's.
-    The codec draws nothing."""
+    (sigma: `sigmavae.sample`, (1, T, d)) in row order, then the
+    generation's. A stableaudio or melvae row's copysyn latents are drawn
+    on the host from the row's mean||scale, by a numpy generator seeded 0
+    for each row, as in the JAX package. The codec draws nothing.
+
+    flow_reverse: the model predicts the mel-VAE's flow-space latents, so
+    the codec inverts the flow before decoding generated latents (copysyn
+    latents are decoded as they are)."""
 
     def __init__(
         self,
@@ -119,11 +158,13 @@ class InferTools:
         ckpt_name: str = "ckpt",
         timestamp: bool = True,
         seed: int = 0,
+        flow_reverse: bool = False,
     ):
         self.cfg = cfg
         self.params = params
         self.tokenizer = tokenizer
         self.codec = codec
+        self.flow_reverse = flow_reverse
         self.device = params["audio_linear"]["w"].device
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         name = f"{version}-{ckpt_name}"
@@ -145,7 +186,8 @@ class InferTools:
             else torch.as_tensor(prompt_latents, device=self.device)[None].float(),
         )
         n = int(res.n_frames[0])
-        return self.codec.decode_latents(self._latents_for_decode(res, slice(0, max(n, 1))))[0]
+        return self.codec.decode_latents(self._latents_for_decode(res, slice(0, max(n, 1))),
+                                         flow_reverse=self.flow_reverse)[0]
 
     def _latents_for_decode(self, res, sl: slice,
                             resample_std: Optional[float] = None) -> torch.Tensor:
@@ -198,7 +240,8 @@ class InferTools:
             res = generate(self.params, self.cfg, torch.from_numpy(ids).to(self.device),
                            torch.from_numpy(mask).to(self.device), self.generator,
                            max_frames=max_frames)
-            audio = self.codec.decode_latents(self._latents_for_decode(res, slice(0, max_frames)))
+            audio = self.codec.decode_latents(self._latents_for_decode(res, slice(0, max_frames)),
+                                              flow_reverse=self.flow_reverse)
             n_frames = res.n_frames.cpu().numpy()
             for r, i in enumerate(group):
                 out[i] = audio[r, :, :max(int(n_frames[r]), 1) * spf]
@@ -231,8 +274,12 @@ class InferTools:
                 f.write(text)
 
             if copysyn and row.get("vae"):
-                mean = torch.from_numpy(load_sigma_latent(row["vae"])).to(self.device)
-                lat = sigmavae.sample(self.generator, mean[None], self.cfg.sigma)
+                if self.codec.kind == "sigma":
+                    mean = torch.from_numpy(load_sigma_latent(row["vae"])).to(self.device)
+                    lat = sigmavae.sample(self.generator, mean[None], self.cfg.sigma)
+                else:
+                    _, lat = load_stableaudio_latent(row["vae"], np.random.default_rng(0))
+                    lat = lat[None]
                 p = os.path.join(self.output_dir, f"{utt}---copysyn.wav")
                 write_wav(p, self.codec.decode_latents(lat)[0], sr)
                 copysyn_paths[utt] = p

@@ -22,6 +22,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from ...bridge import state_array
 from ...core.config import LlamaConfig, LlasaConfig
 
 # the port's stacked layer weights -> (HF name suffix, stored transposed)
@@ -38,20 +39,13 @@ _LAYER_NAMES = {
 }
 
 
-def _to_np(t) -> np.ndarray:
-    """A state-dict entry (torch tensor or numpy array) -> f32 numpy."""
-    if isinstance(t, torch.Tensor):
-        return t.detach().to(torch.float32).cpu().numpy()
-    return np.asarray(t, np.float32)
-
-
 def llama_params_from_state_dict(sd: Dict, cfg: LlamaConfig, prefix: str = "model.") -> dict:
     """An HF Llama state dict -> the stacked layout (torch's nn.Linear
     stores (out, in); the port keeps (in, out)). A checkpoint with fewer
     embedding rows than cfg.vocab_size gets the new rows set to the mean
     embedding (resize_token_embeddings with the mean and no noise)."""
     def g(name):
-        return _to_np(sd[prefix + name])
+        return state_array(sd[prefix + name])
 
     layers = {key: np.stack([g(f"layers.{i}.{suffix}").T if transpose
                              else g(f"layers.{i}.{suffix}")
@@ -72,12 +66,12 @@ def llasa_params_from_state_dict(sd: Dict, cfg: LlasaConfig) -> dict:
     distribution_linear.*) -> the port's Llasa param tree, numpy f32."""
     llama = llama_params_from_state_dict(sd, cfg.llama, prefix="base_model.model.")
     head = {
-        "audio_linear": {"w": _to_np(sd["audio_linear.weight"]).T,
-                         "b": _to_np(sd["audio_linear.bias"])},
-        "distribution_linear": {"w0": _to_np(sd["distribution_linear.0.weight"]).T,
-                                "b0": _to_np(sd["distribution_linear.0.bias"]),
-                                "w2": _to_np(sd["distribution_linear.2.weight"]).T,
-                                "b2": _to_np(sd["distribution_linear.2.bias"])},
+        "audio_linear": {"w": state_array(sd["audio_linear.weight"]).T,
+                         "b": state_array(sd["audio_linear.bias"])},
+        "distribution_linear": {"w0": state_array(sd["distribution_linear.0.weight"]).T,
+                                "b0": state_array(sd["distribution_linear.0.bias"]),
+                                "w2": state_array(sd["distribution_linear.2.weight"]).T,
+                                "b2": state_array(sd["distribution_linear.2.bias"])},
     }
     return {"llama": llama, **head}
 
@@ -89,27 +83,27 @@ def llasa_state_dict_from_params(params: dict, cfg: LlasaConfig) -> Dict[str, to
     `distribution_linear.{0,2}` or, for a tree with a single Linear
     (`w`, `b`), `distribution_linear.{weight,bias}`."""
     def t(a) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(_to_np(a)))
+        return torch.from_numpy(np.ascontiguousarray(state_array(a)))
 
     sd: Dict[str, torch.Tensor] = {}
     ll = params["llama"]
     sd["base_model.model.embed_tokens.weight"] = t(ll["embed"])
     sd["base_model.model.norm.weight"] = t(ll["final_norm"])
     for key, (suffix, transpose) in _LAYER_NAMES.items():
-        stacked = _to_np(ll["layers"][key])
+        stacked = state_array(ll["layers"][key])
         for i in range(cfg.llama.num_layers):
             sd[f"base_model.model.layers.{i}.{suffix}"] = t(
                 stacked[i].T if transpose else stacked[i])
-    sd["audio_linear.weight"] = t(_to_np(params["audio_linear"]["w"]).T)
+    sd["audio_linear.weight"] = t(state_array(params["audio_linear"]["w"]).T)
     sd["audio_linear.bias"] = t(params["audio_linear"]["b"])
     dl = params["distribution_linear"]
     if "w0" in dl:
-        sd["distribution_linear.0.weight"] = t(_to_np(dl["w0"]).T)
+        sd["distribution_linear.0.weight"] = t(state_array(dl["w0"]).T)
         sd["distribution_linear.0.bias"] = t(dl["b0"])
-        sd["distribution_linear.2.weight"] = t(_to_np(dl["w2"]).T)
+        sd["distribution_linear.2.weight"] = t(state_array(dl["w2"]).T)
         sd["distribution_linear.2.bias"] = t(dl["b2"])
     else:
-        sd["distribution_linear.weight"] = t(_to_np(dl["w"]).T)
+        sd["distribution_linear.weight"] = t(state_array(dl["w"]).T)
         sd["distribution_linear.bias"] = t(dl["b"])
     return sd
 

@@ -47,7 +47,8 @@ def main(argv=None) -> None:
     cfg = exp.model
     params = load_llasa_params(args.checkpoint, cfg, args.device)
     if args.codec_config and args.codec_ckpt:
-        codec = Codec.load(args.codec_kind, args.codec_config, args.codec_ckpt)
+        codec = Codec.load(args.codec_kind, args.codec_config, args.codec_ckpt,
+                           device=args.device)
     else:
         codec = Codec.random_init(args.codec_kind, device=args.device,
                                   latent_dim=cfg.latent_dim)

@@ -17,7 +17,9 @@ and GQA groups 1, 4 and 8 with their dead rows exactly 0 and reruns
 bit-identical), one flash train_step against the
 plain path, and whole paths on the card against the CPU: `generate` on the
 tiny f32 config (dense, int8, fused and int4 weights) and at batch 72, the tiny codec
-in bf16, and the continuous batcher. Needs an NVIDIA GPU and nvcc; skipped elsewhere. On
+in bf16, the continuous batcher, the tiny Oobleck and mel-VAE codecs in f32 (TF32
+off; no kernel of the port: cuDNN convs), and `cfg_generate` v1/v2 of the tiny f32
+int8 model (K1-K3 in both branches). Needs an NVIDIA GPU and nvcc; skipped elsewhere. On
 the card (this file imports no JAX, so no conftest):
 
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_cuda.py
@@ -740,3 +742,77 @@ def test_continuous_batcher_on_card(g, kv):
         a, b = out["cuda"][i], out["cpu"][i]
         assert a.n_frames == b.n_frames == 5 and a.steps_waited == b.steps_waited
         assert float(np.abs(a.means - b.means).max()) <= 5e-2
+
+
+@pytest.fixture
+def no_tf32(monkeypatch):
+    """f32 convolutions and matmuls at full precision on the card."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+
+
+@pytest.mark.parametrize("kind", ["stableaudio", "melvae"])
+def test_tiny_codecs_f32_on_card(g, no_tf32, kind):
+    """A tiny Oobleck and MelVAEConfig.tiny() in f32 on the card (cuDNN
+    convs, no kernel of the port) against the CPU: encode, decode and, for
+    the mel-VAE, both flow directions (1e-4 of max |ref|)."""
+    from kalle_tpu_torch.bridge import tree_map
+    from kalle_tpu_torch.infer.pipeline import Codec
+    from kalle_tpu_torch.models.codecs import melvae, oobleck
+
+    if kind == "stableaudio":
+        cfg = oobleck.OobleckConfig(channels=8, latent_dim=8, encoder_out_dim=16,
+                                    c_mults=(1, 2, 4), strides=(2, 4, 4))
+    else:
+        cfg = melvae.MelVAEConfig.tiny()
+    cpu = Codec.random_init(kind, torch.Generator().manual_seed(5), "cpu", cfg=cfg)
+    card = Codec(kind, cfg, tree_map(lambda t: t.cuda(), cpu.params))
+    gen = torch.Generator().manual_seed(6)
+    spf = cpu.samples_per_frame
+    wav = 0.3 * torch.randn(2, 2 if kind == "stableaudio" else 1, 12 * spf, generator=gen)
+    lat = torch.randn(2, 12, cfg.latent_dim, generator=gen)
+    pairs = [(card.encode_audio(wav), cpu.encode_audio(wav)),
+             (card.decode_latents(lat), cpu.decode_latents(lat))]
+    if kind == "melvae":
+        for f in card.params["flows"] + cpu.params["flows"]:  # not the identity
+            f["post"]["w"].fill_(0.05)
+        z = lat.transpose(1, 2)
+        for rev in (False, True):
+            pairs.append((melvae.flow(card.params, cfg, z.cuda(), rev).cpu().numpy(),
+                          melvae.flow(cpu.params, cfg, z, rev).numpy()))
+        pairs.append((card.decode_latents(lat, flow_reverse=True),
+                      cpu.decode_latents(lat, flow_reverse=True)))
+    for got, ref in pairs:
+        assert got.shape == ref.shape
+        assert abs(got - ref).max() <= 1e-4 * max(1.0, abs(ref).max())
+
+
+@pytest.mark.parametrize("variant", ["v1", "v2"])
+def test_cfg_generate_tiny_f32_int8_on_card(g, variant):
+    """cfg_generate of the tiny f32 model with int8 layer weights on the
+    card (K1, K2, K3 in both branches every step) against the CPU, the same
+    injected noise on both sides (1e-4)."""
+    from kalle_tpu_torch.bridge import tree_map
+    from kalle_tpu_torch.core.config import LlasaConfig
+    from kalle_tpu_torch.infer.cfg import cfg_generate
+    from kalle_tpu_torch.models.lm import llasa
+    from kalle_tpu_torch.ops.quant import quantize_llama_params
+
+    cfg = LlasaConfig.tiny(head_variant="melvae")
+    params = quantize_llama_params(llasa.init_params(cfg, torch.Generator().manual_seed(0),
+                                                     "cpu"))
+    ids = torch.randint(0, 300, (1, 9), generator=torch.Generator().manual_seed(1))
+    noise = torch.randn(1, 8, cfg.latent_dim, generator=torch.Generator().manual_seed(2))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        before = _build.launches()
+        out[dev] = cfg_generate(tree_map(lambda t: t.to(dev), params), cfg, ids.to(dev),
+                                max_frames=8, cfg_variant=variant, end_kl_threshold=0.0,
+                                noise=noise.to(dev))
+        after = _build.launches()
+    for name, n in ((k23.NAME_QMM, 2 * 4 * 2 * 8), (k23.NAME_MLP, 2 * 2 * 8),
+                    (k1.NAME, 2 * 2 * 8)):
+        assert after.get(name, 0) - before.get(name, 0) == n
+    ref, got = out["cpu"], out["cuda"]
+    assert torch.equal(got.n_frames.cpu(), ref.n_frames)
+    torch.testing.assert_close(got.samples.cpu(), ref.samples, atol=1e-4, rtol=1e-4)

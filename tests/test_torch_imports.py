@@ -33,4 +33,5 @@ def test_scan_sees_the_package():
     assert {"llama.py", "generate.py", "sigmavae.py", "chip_smoke.py", "flash_attention.py",
             "trainer.py", "datasets.py", "checkpoint.py", "serve_loop.py", "service.py",
             "http.py", "web.py", "audio.py", "pipeline.py", "cli.py", "batch_cli.py",
-            "app.py"} <= names
+            "app.py", "oobleck.py", "melvae.py", "ecapa.py", "mrte.py", "variants.py",
+            "cfg.py", "streaming.py", "online.py", "mel.py", "alias_free.py"} <= names
