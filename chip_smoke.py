@@ -100,6 +100,37 @@ Phases (any failure exits nonzero and prints no result):
      (a)-(d) check K1-K3's launches exactly (K4 none); after the counted
      runs, one profiled codec decode each in (a) and (b), 32 frames of
      (c) v1 and 32 steps of (d) print device time by kernel and busy share.
+  9. codec training and evaluation: (a) the codec trainer in f32 at each
+     codec's default config on rendered synthetic speech (sigma
+     SigmaVAEConfig(), DiscriminatorConfig(), LSGAN, batch 4 x 48,000
+     samples, an EMA and a latent mask of 0.1; melvae MelVAEConfig(), LSGAN,
+     batch 4 x 40,960, its encoder frozen on the first step; oobleck
+     OobleckConfig(), DiscriminatorConfig.encodec_stereo(), hinge,
+     LossWeights.oobleck_default(), batch 2 x 65,536 stereo): one recon-only
+     generator step, then 4 with the GAN on, the discriminator on odd
+     steps; checks finite losses, that both sides' weights moved, the EMA
+     differs, the frozen encoder did not move, no kernel launched (K4
+     included: autograd records the blocks), and that a CodecTrainState
+     checkpoint restores bit-equal; prints ms a generator and a
+     discriminator step, peak memory and one profiled step; (b) one
+     generator and one discriminator step of each kind's small f32 config
+     on the card and the CPU, and in float64 on the CPU, the same injected
+     draws, sigma and oobleck against rendered speech (losses 1e-4
+     relative; per leaf, the card's gradient as near the float64 one as
+     twice the CPU's f32 error plus 1e-5 of the leaf's largest; every
+     element on the AdamW rule within 1e-2·lr; params 1e-2·lr where both
+     f32 gradients have the float64 one's sign; at most 5% below that);
+     (c) flow_space_kl through a latent-1024
+     mel-VAE flow at batch 8 x 128 (finite, the gradient reaches
+     pre_log_scale only, as in JAX; ms); (d) the CTC ASR at CTCConfig() and
+     the speaker embedder at SpeakerTrainConfig(), 100 steps each (render
+     seconds, ms a step, first and last loss, which must fall), the
+     speaker margin, then a fresh infer_jsonl of 8 rows at 128 frames
+     scored by wer_pipeline (gen and copysyn arms, the CTC transcriber)
+     and speaker_similarity (the trained ECAPA and the spectral embedder):
+     every file written, finite values, K1-K4's launches exact; (e)
+     `kalle_tpu_torch.train.codec_demo --size small --steps 4 --gan` in
+     process, its last line the JAX tool's keys.
 
 Phase 1 fails if a bf16 instance of K1, K3 or K4 (or K6/K7 at hd 64) spills.
 Phase 2 holds K3 at M 8, 32 and 72 (1e-2 relative) and K4 at the five
@@ -131,8 +162,9 @@ fused mode bit-identical to the unfused K3, K2's within bf16 tolerance of
 three launches, both reruns bit-identical, K2 beside `torch.matmul`. Launch counts: K1-K3 from
 phase 3's run, K4 from phase 3's and phase 6's counted runs, K5-K7 from
 phase 4's, K1's sideband from phase 5's batch-32 run, each plus phase 7's
-counted runs and phase 8's ((a)-(d) for K1-K3, (e) for K5-K7); the fused
-layout's K2 and K3 rows from phase 7's fused generate runs.
+counted runs and phase 8's ((a)-(d) for K1-K3, (e) for K5-K7) and phase 9's
+scoring run (K1-K4); the fused layout's K2 and K3 rows from phase 7's fused
+generate runs.
 
 Prints a `kernels` JSON line, the card line, and as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
@@ -2727,6 +2759,466 @@ def phase_codecs(card: str) -> dict:
     return counts
 
 
+# --------------------------------------------------------------- phase 9 ----
+
+# (a) the codec trainer at each codec's default config: batch and clip samples
+P9_KINDS = {"sigma": (4, 48000), "melvae": (4, 40960), "oobleck": (2, 65536)}
+P9_LR = 1e-4  # make_codec_optimizer's default
+P9_GAN_STEPS = 4
+# (d) the eval models' training steps (cut from the JAX defaults of 600 and 500)
+P9_ASR_STEPS, P9_SPK_STEPS = 100, 100
+P9_SCORE_ROWS = 8
+# (b) the share of elements with a gradient that only the AdamW rule holds
+P9_BELOW_MAX = 0.05
+
+
+def p9_codec(kind: str, size: str, g, dev="cuda"):
+    """-> (codec cfg, gen params, discriminator cfg, loss weights, adv type)
+    of `kind` at `size` ("full": the default configs; "small": the demo's
+    and the tiny ones), f32 on `dev`."""
+    from kalle_tpu_torch.models.codecs import discriminators as disc
+    from kalle_tpu_torch.models.codecs import melvae, oobleck, sigmavae
+    from kalle_tpu_torch.train import codec_trainer as ct
+
+    full = size == "full"
+    if kind == "sigma":
+        cfg = sigmavae.SigmaVAEConfig() if full else sigmavae.SigmaVAEConfig(
+            latent_dim=16, strides=(2, 2), channels=(16, 32), blocks_per_stage=1)
+        return (cfg, sigmavae.init_params(cfg, g, dev),
+                disc.DiscriminatorConfig() if full else disc.DiscriminatorConfig.tiny(),
+                ct.LossWeights(), "lsgan")
+    if kind == "melvae":
+        cfg = melvae.MelVAEConfig() if full else melvae.MelVAEConfig.tiny()
+        return (cfg, melvae.init_params(cfg, g, dev),
+                disc.DiscriminatorConfig() if full else disc.DiscriminatorConfig.tiny(),
+                ct.LossWeights(), "lsgan")
+    cfg = oobleck.OobleckConfig() if full else oobleck.OobleckConfig(
+        channels=8, latent_dim=8, encoder_out_dim=16, c_mults=(1, 2), strides=(2, 4),
+        sample_rate=16000)
+    return (cfg, oobleck.init_params(cfg, g, dev),
+            disc.DiscriminatorConfig.encodec_stereo() if full
+            else disc.DiscriminatorConfig.tiny(2), ct.LossWeights.oobleck_default(), "hinge")
+
+
+def p9_clips(kind: str, cfg, batch: int, samples: int, seed: int) -> np.ndarray:
+    """(batch, channels, samples) f32 of rendered synthetic speech at the
+    codec's rate (each row a random sentence by another speaker, tiled to
+    length); the Oobleck's right channel is the left delayed 0.5 ms."""
+    from kalle_tpu_torch.data import synth_speech as sl
+
+    rng = np.random.default_rng(seed)
+    rows = []
+    for i in range(batch):
+        w = sl.render(sl.random_sentence(rng, (4, 8)), cfg.sample_rate, speaker=i, seed=seed)
+        rows.append(np.resize(w, samples))
+    x = np.stack(rows).astype(np.float32)
+    if kind == "oobleck":
+        return np.stack([x, 0.9 * np.roll(x, cfg.sample_rate // 2000, axis=-1)], 1)
+    return x[:, None]
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _moved(a: dict, b: dict) -> float:
+    from kalle_tpu_torch.bridge import tree_leaves
+
+    return max(float((x.detach() - y.detach()).abs().max())
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def _copy(tree):
+    from kalle_tpu_torch.bridge import tree_map
+
+    return tree_map(lambda t: t.detach().clone(), tree)
+
+
+def p9_trainer(card: str, kind: str, root: str) -> None:
+    """(a) one recon-only generator step (the mel-VAE's with its encoder
+    frozen), then P9_GAN_STEPS with the GAN on from step 1, the
+    discriminator before the generator on odd steps; the sigma codec with
+    an EMA and a latent mask of 0.1. f32 at the default config."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from kalle_tpu_torch.models.codecs import discriminators as disc
+    from kalle_tpu_torch.ops.kernels import _build
+    from kalle_tpu_torch.train import codec_trainer as ct
+
+    batch, samples = P9_KINDS[kind]
+    g = torch.Generator(device="cuda").manual_seed(90)
+    torch.cuda.reset_peak_memory_stats()
+    cfg, gen, dcfg, weights, adv = p9_codec(kind, "full", g)
+    dp = disc.init_params(dcfg, g, "cuda")
+    tx = ct.make_codec_optimizer(P9_LR)
+    state = ct.make_state(gen, dp, tx, tx, use_ema=kind == "sigma")
+    gen0, dp0 = _copy(gen), _copy(dp)
+    wav = torch.from_numpy(p9_clips(kind, cfg, batch, samples, 9)).cuda()
+    kw = dict(warmup_steps=1, adv_type=adv, latent_mask_ratio=0.1 if kind == "sigma" else 0.0)
+    _build.reset_launches()
+    _, m = ct.generator_step(state, kind, cfg, dcfg, weights, wav, g, gan_on=False,
+                             freeze_encoder=kind == "melvae", **kw)
+    metrics = [m]
+    if kind == "melvae" and _moved(state.gen_params["encoder"], gen0["encoder"]) != 0.0:
+        raise AssertionError("melvae: the frozen encoder's weights moved")
+    gen_ms, disc_ms = [], []
+    for i in range(1, 1 + P9_GAN_STEPS):
+        if i % 2:
+            (_, dm), ms = _timed(lambda: ct.discriminator_step(state, kind, cfg, dcfg, wav, g,
+                                                               adv_type=adv))
+            metrics.append(dm)
+            disc_ms.append(ms)
+        (_, m), ms = _timed(lambda: ct.generator_step(state, kind, cfg, dcfg, weights, wav, g,
+                                                      **kw))
+        metrics.append(m)
+        gen_ms.append(ms)
+    counts = _build.launches()
+    bad = [k for m in metrics for k, v in m.items() if not bool(torch.isfinite(v))]
+    if bad:
+        raise AssertionError(f"{kind}: non-finite losses {bad}")
+    if any(counts.values()):
+        raise AssertionError(f"{kind}: codec training launched kernels {counts}")
+    moved_g, moved_d = _moved(state.gen_params, gen0), _moved(state.disc_params, dp0)
+    if not (moved_g > 0 and moved_d > 0):
+        raise AssertionError(f"{kind}: weights did not move (gen {moved_g}, disc {moved_d})")
+    if state.gen_ema is not None and _moved(state.gen_ema, state.gen_params) == 0.0:
+        raise AssertionError("sigma: the EMA equals the weights")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    last, last_d = metrics[-1], [m for m in metrics if "adv_d" in m][-1]
+    log(f"codec_train {kind} batch {batch} samples {samples} gen_step_ms "
+        f"{np.mean(gen_ms[1:]):.2f} disc_step_ms {disc_ms[-1]:.2f} (host clock, after a "
+        f"warm-up step) peak_mem_gb {peak:.2f} gen_total {float(last['gen_total']):.4f} "
+        f"adv_g {float(last['adv_g']):.4f} fm {float(last['fm']):.4f} adv_d "
+        f"{float(last_d['adv_d']):.4f} launches {json.dumps(counts)} card {card}")
+    log(f"  {kind}: losses finite, gen moved {moved_g:.3g}, disc moved {moved_d:.3g}"
+        + (", frozen encoder unmoved" if kind == "melvae" else "")
+        + (", EMA differs from the weights" if state.gen_ema is not None else ""))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, ms = _timed(lambda: ct.generator_step(state, kind, cfg, dcfg, weights, wav, g, **kw))
+    report_profile(prof, ms / 1e3, f"one {kind} GAN generator step")
+    if kind == "sigma":
+        from kalle_tpu_torch.core.checkpoint import CheckpointManager
+
+        mgr = CheckpointManager(os.path.join(root, "codec"))
+        mgr.save(state.step, state, wait=True)
+        tmpl = ct.make_state(p9_codec(kind, "full", g)[1], disc.init_params(dcfg, g, "cuda"),
+                             tx, tx, use_ema=True)
+        restored, step = mgr.restore(tmpl)
+        a, b = state.state_dict(), restored.state_dict()
+        same = (step == state.step == restored.step
+                and all(_leaves_equal(a[k], b[k])
+                        for k in ("gen_params", "disc_params", "gen_ema"))
+                and all(_leaves_equal([v for s in a[o]["state"].values() for v in s.values()],
+                                      [v for s in b[o]["state"].values() for v in s.values()])
+                        for o in ("gen_opt", "disc_opt")))
+        if not same:
+            raise AssertionError("the restored CodecTrainState differs")
+        log(f"  sigma: CodecTrainState checkpoint (step {step}) restores leaf for leaf "
+            "bit-equal, both optimizer states included")
+    del state, gen, dp, gen0, dp0
+    torch.cuda.empty_cache()
+
+
+def _adam_first_step(p_card, p_cpu, p0, g_card, g_cpu, g64, lr: float, wd: float) -> dict:
+    """Holds one AdamW update of the same params made on the card and on the
+    CPU in f32, element by element, against the gradient `g64` of a float64
+    run on the CPU, which stands for the exact one. Per leaf, with e_cpu and
+    e_card the two f32 gradients' largest distance from it and s its
+    largest |g64|:
+    - grad: e_card <= 2·e_cpu + 1e-5·s. The card's f32 gradient is as near
+      the exact one as the CPU's. (A log-magnitude STFT loss divides by
+      each bin's magnitude, so f32 rounding of the quiet bins reaches its
+      gradient at ~1e-2 of the largest, on either device.)
+    - rule: in each run every element moved as AdamW's first step says on
+      that run's own gradient, -lr·(wd·p0 + g/(|g| + 1e-8)).
+    - param: the two runs agree wherever |g64| is above twice both f32
+      gradients' distance from it at that element, above 1e-5·s and above
+      100 times Adam's eps: both runs' gradients have its sign there, and
+      Adam's step does not depend on their size. Elsewhere Adam turns f32
+      rounding into a share of lr, and the rule (on a gradient that the
+      grad check holds) alone holds the element; `below` is their share
+      among the elements with a gradient.
+    Returns the worst grad ratio (e_card over its bound), rule and param
+    errors over lr, and `below`."""
+    out = {"grad": 0.0, "rule": 0.0, "param": 0.0, "below": 0, "n": 0}
+    for a, b, a0, ga, gb, g in zip(p_card, p_cpu, p0, g_card, g_cpu, g64):
+        a, b, a0, ga, gb, g = (t.detach().cpu().double() for t in (a, b, a0, ga, gb, g))
+        s = float(g.abs().max())
+        e_card, e_cpu = float((ga - g).abs().max()), float((gb - g).abs().max())
+        bound = 2 * e_cpu + 1e-5 * s
+        if e_card:
+            out["grad"] = max(out["grad"], e_card / bound if bound else math.inf)
+        for x, gx in ((a, ga), (b, gb)):
+            rule = x - a0 * (1 - lr * wd) + lr * gx / (gx.abs() + 1e-8)
+            out["rule"] = max(out["rule"], float(rule.abs().max()) / lr)
+        live = ((g.abs() > 2 * torch.maximum((ga - g).abs(), (gb - g).abs()) + 1e-5 * s)
+                & (g.abs() > 1e-6))
+        if live.any():
+            out["param"] = max(out["param"], float((a - b)[live].abs().max()) / lr)
+        has_grad = (ga != 0) | (gb != 0)
+        out["below"] += int((~live & has_grad).sum())
+        out["n"] += int(has_grad.sum())
+    out["below"] /= max(out["n"], 1)
+    return out
+
+
+def p9_small_reference() -> None:
+    """(b) one generator step (GAN on) and one discriminator step of each
+    kind's small f32 config on the card and on the CPU, TF32 off, the same
+    injected draws, rendered speech as the target, each step from the same
+    initial weights (the mel-VAE's target is silence), and the same steps in
+    float64 on the CPU: losses within 1e-4 relative; each network's update
+    held by `_adam_first_step`."""
+    from kalle_tpu_torch.bridge import tree_leaves, tree_map
+    from kalle_tpu_torch.models.codecs import discriminators as disc
+    from kalle_tpu_torch.models.codecs import melvae, oobleck, sigmavae
+    from kalle_tpu_torch.train import codec_trainer as ct
+
+    lr, wd, failed = 1e-3, 1e-4, []  # wd: make_codec_optimizer's AdamW decay
+    for kind in P9_KINDS:
+        g = torch.Generator().manual_seed(91)
+        cfg, gen, dcfg, weights, adv = p9_codec(kind, "small", g, "cpu")
+        dp = disc.init_params(dcfg, g, "cpu")
+        hop = getattr(cfg, "hop", None) or cfg.downsampling_ratio
+        wav = torch.from_numpy(p9_clips(kind, cfg, 2, 64 * hop, 94))
+        if kind == "melvae":
+            # silence, as tests/test_torch_codec_train.py trains this kind, and a
+            # louder last conv (at its N(0, 0.01) init the decoder is near-silent):
+            # against speech the card's f32 gradient was 2.4 times its bound from
+            # the float64 one (PERF.md §6, PR 14)
+            wav = torch.zeros_like(wav)
+            gen["decoder"]["conv_post"]["w"] *= 30.0
+        with torch.no_grad():
+            x = wav.transpose(1, 2)
+            if kind == "melvae":
+                t = melvae.forward(gen, cfg, wav, g)[1][1].shape[-1]
+                shape = (2, t, cfg.latent_dim)
+            elif kind == "sigma":
+                shape = tuple(sigmavae.encode_nwc(gen, cfg, x).shape)
+            else:
+                b, t, c = oobleck.encode_nwc(gen, cfg, x).shape
+                shape = (b, t, c // 2)
+        noise, u, noise_d = (torch.randn(shape, generator=g), torch.rand(shape, generator=g),
+                             torch.randn(shape, generator=g))
+        kw = dict(resolutions=((256, 64, 256), (512, 128, 512)), adv_type=adv,
+                  latent_mask_ratio=0.1)
+        out = {}
+        for run, dev, dt in (("cpu", "cpu", torch.float32), ("card", "cuda", torch.float32),
+                             ("f64", "cpu", torch.float64)):
+            def state():
+                mv = lambda tree: tree_map(lambda t: t.detach().clone().to(dev, dt), tree)
+                return ct.make_state(mv(gen), mv(dp), ct.make_codec_optimizer(lr),
+                                     ct.make_codec_optimizer(lr))
+
+            def used(opt, leaves):  # the step's gradient: a first moment is (1 - b1)·g
+                b1 = opt.param_groups[0]["betas"][0]
+                return [(opt.state[p]["exp_avg"] / (1 - b1)).cpu() for p in leaves]
+
+            w, n, m, nd = (t.to(dev, dt) for t in (wav, noise, u, noise_d))
+            sg, sd = state(), state()
+            _, mg = ct.generator_step(sg, kind, cfg, dcfg, weights, w, noise=n,
+                                      mask_uniform=m, **kw)
+            _, md = ct.discriminator_step(sd, kind, cfg, dcfg, w, adv_type=adv, noise=nd)
+            lg, ld = tree_leaves(sg.gen_params), tree_leaves(sd.disc_params)
+            out[run] = {"metrics": {k: float(v) for k, v in {**mg, **md}.items()},
+                        "gen": (used(sg.gen_opt, lg), lg), "disc": (used(sd.disc_opt, ld), ld)}
+        cpu, card, f64 = out["cpu"], out["card"], out["f64"]
+        loss_err = max(abs(card["metrics"][k] - v) / max(1.0, abs(v))
+                       for k, v in cpu["metrics"].items())
+        res = {net: _adam_first_step(card[net][1], cpu[net][1], tree_leaves(p0), card[net][0],
+                                     cpu[net][0], f64[net][0], lr, wd)
+               for net, p0 in (("gen", gen), ("disc", dp))}
+        log(f"  (b) {kind} card vs CPU: loss {loss_err:.3g}; " + "; ".join(
+            f"{net}: grad {r['grad']:.3g} of its bound, AdamW rule {r['rule']:.3g}·lr, "
+            f"param {r['param']:.3g}·lr, below the gate {r['below']:.4f} of {r['n']}"
+            for net, r in res.items()))
+        if not (loss_err <= 1e-4 and all(
+                r["grad"] <= 1 and r["rule"] <= 1e-2 and r["param"] <= 1e-2
+                and r["below"] <= P9_BELOW_MAX for r in res.values())):
+            failed.append(kind)
+    if failed:
+        raise AssertionError(f"(b) card vs CPU step disagrees: {failed}")
+    log("  (b) small f32 codec steps (sigma and oobleck against speech), card vs CPU (TF32 "
+        "off): within the limits (loss 1e-4; grad 1 of its bound; rule 1e-2; param 1e-2; "
+        f"below the gate {P9_BELOW_MAX})")
+
+
+def p9_flow_kl(card: str) -> None:
+    """(c) flow_space_kl through a latent-1024 mel-VAE flow (the
+    melvae_dim2048_tts_sft shape) at batch 8 x 128 frames."""
+    from kalle_tpu_torch.bridge import tree_leaves
+    from kalle_tpu_torch.models.codecs import melvae
+    from kalle_tpu_torch.train.flow_kl import flow_space_kl
+
+    g = torch.Generator(device="cuda").manual_seed(92)
+    cfg = dataclasses.replace(melvae.MelVAEConfig(), latent_dim=1024)
+    params = melvae.init_params(cfg, g, "cuda")
+    for f in params["flows"]:  # a fresh flow is the identity
+        f["post"]["w"] = 0.02 * torch.randn(f["post"]["w"].shape, generator=g, device="cuda")
+    for p in tree_leaves(params):
+        p.requires_grad_(True)
+    b, t, d = 8, 128, cfg.latent_dim
+    mean = torch.randn(b, t, d, generator=g, device="cuda").requires_grad_(True)
+    logs = (0.1 * torch.randn(b, t, d, generator=g, device="cuda")).requires_grad_(True)
+    labels = torch.cat([torch.randn(b, t, d, generator=g, device="cuda"),
+                        0.1 * torch.randn(b, t, d, generator=g, device="cuda")], -1)
+    tm = (torch.rand(b, t, generator=g, device="cuda") > 0.1).float()
+
+    def run():
+        loss = flow_space_kl(params, cfg, {"pre_mean": mean, "pre_log_scale": logs}, labels,
+                             tm, g)
+        return loss, torch.autograd.grad(loss, (mean, logs), materialize_grads=True)
+
+    run()
+    (loss, (g_mean, g_logs)), ms = _timed(run)
+    if not (bool(torch.isfinite(loss)) and bool(torch.isfinite(g_logs).all())
+            and float(g_logs.abs().max()) > 0 and float(g_mean.abs().max()) == 0.0
+            and all(p.grad is None for p in tree_leaves(params))):
+        raise AssertionError("flow_space_kl: loss or gradients wrong")
+    log(f"flow_space_kl batch {b} frames {t} latent {d} ms {ms:.2f} (forward and gradient, "
+        f"host clock) loss {float(loss.detach()):.4f}: finite; pre_log_scale has a gradient, "
+        f"pre_mean's is 0 as in JAX (the flow output is a constant), the flow's params none "
+        f"card {card}")
+    for p in tree_leaves(params):
+        p.requires_grad_(False)
+
+
+def p9_eval(card: str, root: str) -> dict:
+    """(d) train the CTC ASR and the speaker embedder, then score a fresh
+    infer_jsonl's wavs: wer_pipeline on the gen and copysyn arms, speaker
+    similarity with the trained ECAPA and the spectral embedder, margin.
+    Returns the scoring run's launches."""
+    from kalle_tpu_torch.data import synth_speech as sl
+    from kalle_tpu_torch.data.tokens import ByteTokenizer
+    from kalle_tpu_torch.eval import ctc_asr, harness, speaker_embedder as se
+    from kalle_tpu_torch.infer.pipeline import Codec, InferTools
+
+    rng = np.random.default_rng(93)
+    cfg = ctc_asr.CTCConfig()
+    texts = [sl.random_sentence(rng) for _ in range(32)]
+    # render alone, then train_ctc as a whole (it renders the same bank again);
+    # the difference is the training
+    bank, render_ms = _timed(lambda: ctc_asr.make_training_bank(cfg, texts, 4, 2, seed=93,
+                                                                device="cuda"))
+    (params, curve), ms = _timed(lambda: ctc_asr.train_ctc(
+        cfg, texts, n_speakers=4, n_render=2, steps=P9_ASR_STEPS, batch=16, lr=2e-3,
+        seed=93, log_every=10, device="cuda"))
+    log(f"ctc_asr CTCConfig() clips {len(bank[4])} render_s {render_ms / 1e3:.2f} train_ctc_s "
+        f"{ms / 1e3:.2f} steps {P9_ASR_STEPS} ms_per_step {(ms - render_ms) / P9_ASR_STEPS:.2f} "
+        f"(train_ctc less the render) loss first {curve[0]:.3f} last {curve[-1]:.3f} "
+        f"card {card}")
+    if not (np.isfinite(curve).all() and curve[-1] < curve[0]):
+        raise AssertionError(f"the CTC loss did not fall: {curve}")
+    scfg = dataclasses.replace(se.SpeakerTrainConfig(), steps=P9_SPK_STEPS)
+    sbank, render_ms = _timed(lambda: se._render_bank(scfg, device="cuda"))
+    (sparams, ecfg, scurve), ms = _timed(lambda: se.train_speaker_embedder(scfg,
+                                                                          device="cuda"))
+    log(f"speaker_embedder SpeakerTrainConfig() clips {len(sbank[1])} render_s "
+        f"{render_ms / 1e3:.2f} train_s {ms / 1e3:.2f} steps {P9_SPK_STEPS} ms_per_step "
+        f"{(ms - render_ms) / P9_SPK_STEPS:.2f} (train_speaker_embedder less the render) loss "
+        f"first {scurve[0]:.3f} last {scurve[-1]:.3f} card {card}")
+    if not (np.isfinite(scurve).all() and scurve[-1] < scurve[0]):
+        raise AssertionError(f"the speaker loss did not fall: {scurve}")
+    pos, neg = se.margin(sparams, ecfg, scfg)
+    log(f"  speaker margin (held-out renders): same-speaker {pos:.4f} cross-speaker {neg:.4f}")
+
+    # a fresh infer_jsonl at phase 6's shape (phase 6's directory is gone)
+    lm = flagship()
+    L = lm.llama.num_layers
+    lm_params = flagship_int8(torch.Generator(device="cuda").manual_seed(0))
+    codec = Codec.random_init("sigma", torch.Generator(device="cuda").manual_seed(6),
+                              "cuda").astype(torch.bfloat16)
+    blocks = len(codec.cfg.strides) * codec.cfg.blocks_per_stage
+    rows = []
+    for i, text in enumerate(serve_texts(P9_SCORE_ROWS, rng)):
+        path = os.path.join(root, f"lat{i}.npy")
+        np.save(path, rng.normal(size=(1, int(rng.integers(40, 121)), 64)).astype(np.float32))
+        rows.append({"id": f"u{i}", "caption": text, "vae": path})
+    it = InferTools(lm, lm_params, ByteTokenizer(), codec, output_root=root, version="phase9",
+                    ckpt_name="random", timestamp=False)
+    out = it.output_dir
+    transcribe = ctc_asr.make_ctc_transcriber(params, cfg)
+    trained = se.make_trained_embedder(sparams, ecfg, scfg)
+    spectral = harness.make_spectral_embedder(16000, "cuda")
+
+    def score():
+        it.infer_jsonl(rows, max_frames=INFER_FRAMES, batch_size=P9_SCORE_ROWS)
+        with open(os.path.join(out, "meta.lst"), "w") as f:
+            for r in rows:  # the copysyn wav stands as the voice prompt
+                f.write(f"{r['id']}|prompt|{os.path.join(out, r['id'] + '---copysyn.wav')}|"
+                        f"{r['caption']}\n")
+        meta = os.path.join(out, "meta.lst")
+        res = {"wer_gen": harness.wer_pipeline("en", out, meta, transcribe),
+               "wer_copysyn": harness.wer_pipeline("en", out, meta, transcribe,
+                                                   gen_suffix="---copysyn.wav")}
+        items = harness.read_meta_lst(meta)
+        for name, fn in (("sim_ecapa", trained), ("sim_spectral", spectral)):
+            res[name] = harness.speaker_similarity(out, items, fn)
+            with open(os.path.join(out, "0000000_sim,json")) as f:
+                res[name + "_n"] = len(json.load(f))
+        return res
+
+    (res, counts), ms = _timed(lambda: _counted(score))
+    expect = {"decode_attention": L * INFER_FRAMES, "qmm": 4 * L * INFER_FRAMES,
+              "fused_mlp": L * INFER_FRAMES, "convnext_block": blocks * (P9_SCORE_ROWS + 1)}
+    check_launches("scoring run (infer_jsonl, ASR, speaker similarity)", counts, expect)
+    files = ["aaa_gt.txt", "aaa_asr.txt", "000000000_wer.txt", "000000000_wer_copysyn.txt",
+             "0000000_sim,json", "0000000_sim.txt", "meta.lst"]
+    missing = [f for f in files if not os.path.exists(os.path.join(out, f))]
+    vals = [res[k] for k in ("wer_gen", "wer_copysyn", "sim_ecapa", "sim_spectral")]
+    if missing or not np.isfinite(vals).all() or res["sim_ecapa_n"] != P9_SCORE_ROWS \
+            or res["sim_spectral_n"] != P9_SCORE_ROWS:
+        raise AssertionError(f"scoring: missing {missing}, values {res}")
+    log(f"score rows {P9_SCORE_ROWS} wall_s {ms / 1e3:.3f} (infer_jsonl + ASR + 2 similarity "
+        f"passes) wer_gen {res['wer_gen']:.2f} wer_copysyn {res['wer_copysyn']:.2f} sim_ecapa "
+        f"{res['sim_ecapa']:.4f} sim_spectral {res['sim_spectral']:.4f} (random weights: no "
+        f"quality bar) card {card}")
+    del lm_params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def p9_demo() -> None:
+    """(e) the codec demo entry point in process on the card."""
+    import contextlib
+    import io
+
+    from kalle_tpu_torch.train import codec_demo
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        _, ms = _timed(lambda: codec_demo.main(["--size", "small", "--steps", "4", "--gan"]))
+    last = json.loads(buf.getvalue().strip().splitlines()[-1])
+    keys = ["snr_db", "mrstft", "holdout_snr_db", "holdout_mrstft", "steps", "size", "gan",
+            "kind", "warmup_steps", "clips", "holdout_clips", "wall_s"]
+    if list(last) != keys or not np.isfinite([last[k] for k in keys[:4]]).all():
+        raise AssertionError(f"codec_demo printed {last}")
+    log(f"  (e) python -m kalle_tpu_torch.train.codec_demo --size small --steps 4 --gan: "
+        f"{json.dumps(last)} ({ms / 1e3:.1f} s in process)")
+
+
+def phase_codec_training(card: str) -> dict:
+    """Phase 9: the codec trainer at each codec's default config, small
+    steps card vs CPU, flow_space_kl, the eval models and the scoring of
+    generated wavs, the codec demo. Returns the scoring run's launches."""
+    log("# phase 9: codec training (sigma, melvae, oobleck), flow-space KL, CTC ASR, "
+        "speaker embedder, WER and speaker similarity")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        for kind in P9_KINDS:
+            p9_trainer(card, kind, root)
+        p9_small_reference()
+        p9_flow_kl(card)
+        counts = p9_eval(card, root)
+    p9_demo()
+    log(f"phase 9 s {time.perf_counter() - t0:.1f}")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2756,6 +3248,9 @@ def main() -> int:
     for name in ("decode_attention", "qmm", "fused_mlp", "flash_fwd", "flash_bwd_dq",
                  "flash_bwd_dkv"):
         launches[name] = launches.get(name, 0) + p8.get(name, 0)
+    p9 = phase_codec_training(card)
+    for name in K1_K4:
+        launches[name] = launches.get(name, 0) + p9.get(name, 0)
     for r in rows:
         r["launches"] = launches.get(r["name"], 0)
         r["route"] = "cuda"

@@ -16,7 +16,11 @@ across leaf by leaf with its structure unchanged:
     (kalle_tpu/models/lm/llasa.py:46-66);
   * SigmaVAE convs stay NWC kernels (K, Cin/groups, Cout)
     (kalle_tpu/models/codecs/sigmavae.py:90-142); `ops/conv.py` takes them
-    in that layout.
+    in that layout;
+  * the codec discriminators keep `{"mpd": [stack], "mrd": [stack]}`, a
+    stack a list of `{"w": (K, C_in, C_out), "b": (C_out,)}`
+    (kalle_tpu/models/codecs/discriminators.py:54-83), so the JAX and the
+    port's discriminators run one set of weights.
 
 Only numpy goes in: a caller holding JAX arrays maps `np.asarray` over its
 tree first, so this module never needs JAX. An f32 training tree crosses

@@ -90,16 +90,15 @@ class CheckpointManager:
         self.write_s += time.perf_counter() - t0
 
     def save(self, step: int, state: Any, wait: bool = False) -> None:
-        """Save `state` (a train.step.TrainState) as step `step`: copied to
-        host memory here, written on the writer thread. wait=True returns
-        once the file is written."""
+        """Save `state` (anything with `state_dict` / `load_state_dict`: a
+        train.step.TrainState or a train.codec_trainer.CodecTrainState) as
+        step `step`: copied to host memory here, written on the writer
+        thread. wait=True returns once the file is written."""
         self._join()
         if self._last_saved is None:
             self._last_saved = self.latest_step()
         if self._last_saved is None or step > self._last_saved:
-            payload = {"step": int(state.step), "params": _to_host(state.params),
-                       "optimizer": _to_host(state.optimizer.state_dict()),
-                       "scheduler": state.scheduler.state_dict()}
+            payload = _to_host(state.state_dict())
             self._last_saved = step
             self._writer = threading.Thread(target=self._write, args=(step, payload),
                                             name=f"checkpoint-{step}", daemon=True)
@@ -113,27 +112,31 @@ class CheckpointManager:
 
     def restore(self, state_template: Any, step: Optional[int] = None) -> Tuple[Any, int]:
         """Load checkpoint `step` (default: the newest) into
-        `state_template` in place: params copied into its tensors,
-        optimizer and schedule state loaded. -> (state, step);
-        (template, 0) when there is none."""
+        `state_template` in place (its `load_state_dict`). -> (state,
+        step); (template, 0) when there is none."""
         step = self.latest_step() if step is None else step
         if step is None:
             return state_template, 0
-        # onto the host: params are copied to their device below, and the
-        # optimizer moves its moments to theirs and keeps its step counts on
-        # the host, where AdamW wants them
+        # onto the host: params are copied to their device, and the optimizer
+        # moves its moments to theirs and keeps its step counts on the host,
+        # where AdamW wants them
         payload = torch.load(self._path(step), map_location="cpu", weights_only=True)
-        with torch.no_grad():
-            for dst, src in zip(tree_leaves(state_template.params),
-                                tree_leaves(payload["params"])):
-                if dst.shape != src.shape:
-                    raise ValueError(f"checkpoint step {step}: a param of shape "
-                                     f"{tuple(src.shape)} for one of {tuple(dst.shape)}")
-                dst.copy_(src)
-        state_template.optimizer.load_state_dict(payload["optimizer"])
-        state_template.scheduler.load_state_dict(payload["scheduler"])
-        state_template.step = int(payload["step"])
+        state_template.load_state_dict(payload)
         return state_template, step
+
+
+def copy_leaves_(dst_tree: Any, src_tree: Any, what: str) -> None:
+    """Copy every tensor leaf of `src_tree` into the same leaf of
+    `dst_tree` (a checkpoint into live params), shapes checked."""
+    dst, src = tree_leaves(dst_tree), tree_leaves(src_tree)
+    if len(dst) != len(src):
+        raise ValueError(f"{what}: {len(src)} leaves for {len(dst)}")
+    with torch.no_grad():
+        for d, s in zip(dst, src):
+            if d.shape != s.shape:
+                raise ValueError(f"{what}: a leaf of shape {tuple(s.shape)} for one of "
+                                 f"{tuple(d.shape)}")
+            d.copy_(s)
 
 
 def load_reference_llasa_checkpoint(path: str, cfg, device="cuda") -> dict:

@@ -12,10 +12,13 @@ in the JAX package.
 
 A residual block in bf16 on the card, in the encoder or the decoder, runs
 the fused kernel K4 (ops/kernels/convnext_block.py), as the JAX package
-sends bf16 blocks off the CPU to its Pallas kernel; any other block runs
-the plain ops (with `gemm_blocks`, the depthwise conv folded into the up
-projection). The VibeVoice-schema torch state dict import and export are
-at the bottom of the file.
+sends bf16 blocks off the CPU to its Pallas kernel, unless autograd
+records it (K4 has no backward); any other block runs the plain ops (with
+`gemm_blocks`, the depthwise conv folded into the up projection).
+`encode` and `decode` are the inference entry points (no gradient);
+`encode_nwc` and `decode_nwc` are differentiable, for codec training. The
+VibeVoice-schema torch state dict import and export are at the bottom of
+the file.
 """
 from __future__ import annotations
 
@@ -27,7 +30,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ...bridge import params_to_numpy
+from ...bridge import params_to_numpy, tree_leaves
 from ...ops.conv import conv1d, conv_transpose1d_causal
 from ...ops.kernels.convnext_block import convnext_block
 
@@ -106,9 +109,15 @@ def init_params(cfg: SigmaVAEConfig, generator: torch.Generator, device="cuda") 
     return {"encoder": enc, "decoder": dec}
 
 
+def _records(x: torch.Tensor, p: dict) -> bool:
+    """Whether autograd records a block on x with params p."""
+    return torch.is_grad_enabled() and (
+        x.requires_grad or any(t.requires_grad for t in tree_leaves(p)))
+
+
 def _block(x: torch.Tensor, p: dict, cfg: SigmaVAEConfig) -> torch.Tensor:
     if (cfg.fused_blocks and cfg.kernel == 7 and x.dtype == torch.bfloat16
-            and x.is_cuda):
+            and x.is_cuda and not _records(x, p)):
         # the convs hand back NWC views of NCW tensors; K4 reads (B, T, C) rows
         return convnext_block(x.contiguous(), p["norm"], p["dw"]["w"], p["dw"]["b"],
                               p["up"]["w"], p["up"]["b"], p["down"]["w"],
@@ -128,7 +137,8 @@ def _block(x: torch.Tensor, p: dict, cfg: SigmaVAEConfig) -> torch.Tensor:
     return x + (h @ p["down"]["w"][0] + p["down"]["b"])
 
 
-def _encode_nwc(params: dict, cfg: SigmaVAEConfig, x: torch.Tensor) -> torch.Tensor:
+def encode_nwc(params: dict, cfg: SigmaVAEConfig, x: torch.Tensor) -> torch.Tensor:
+    """x (B, T, 1) -> latent means (B, T // hop, d); differentiable."""
     p = params["encoder"]
     x = conv1d(x, p["pre"]["w"], p["pre"]["b"], padding=(cfg.kernel - 1, 0))
     for st, s in zip(p["stages"], cfg.strides):
@@ -140,7 +150,8 @@ def _encode_nwc(params: dict, cfg: SigmaVAEConfig, x: torch.Tensor) -> torch.Ten
     return conv1d(x, p["head"]["w"], p["head"]["b"])
 
 
-def _decode_nwc(params: dict, cfg: SigmaVAEConfig, z: torch.Tensor) -> torch.Tensor:
+def decode_nwc(params: dict, cfg: SigmaVAEConfig, z: torch.Tensor) -> torch.Tensor:
+    """z (B, T', d) -> wav (B, T' * hop, 1); differentiable."""
     p = params["decoder"]
     x = conv1d(z, p["pre"]["w"], p["pre"]["b"])
     for st, s in zip(p["stages"], reversed(cfg.strides)):
@@ -165,14 +176,14 @@ def encode(params: dict, cfg: SigmaVAEConfig, wav: torch.Tensor) -> torch.Tensor
     """wav (B, 1, T) or (B, T) -> latent means (B, T // hop, d)."""
     if wav.dim() == 2:
         wav = wav[:, None, :]
-    return _encode_nwc(params, cfg, wav.transpose(1, 2))
+    return encode_nwc(params, cfg, wav.transpose(1, 2))
 
 
 @torch.no_grad()
 def decode(params: dict, cfg: SigmaVAEConfig, latents: torch.Tensor) -> torch.Tensor:
     """latents (B, T, d) or (B, d, T) -> wav (B, 1, T * hop) at 24 kHz."""
     z = _orient_btd(latents, cfg.latent_dim)
-    return _decode_nwc(params, cfg, z).transpose(1, 2)
+    return decode_nwc(params, cfg, z).transpose(1, 2)
 
 
 def sample(generator: Optional[torch.Generator], mean: torch.Tensor, sigma: float = 0.5,

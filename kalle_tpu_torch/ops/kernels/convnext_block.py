@@ -7,6 +7,12 @@ launches `csrc/convnext_block.cu` (bf16, any C and hidden width H =
 mlp_ratio * C: tensor-core instances for C in {16, ..., 512} with H = 2C,
 a generic one for the rest); on CPU tensors it runs `convnext_block_plain`,
 the kernel's arithmetic in PyTorch (f32 inside, one rounding at the output).
+
+K4 has no backward, in the JAX package or here: the wrapper raises when
+autograd records and any input requires a gradient, on either device,
+rather than hand back an output that silently cuts the gradient. A caller
+that differentiates through a block takes the unfused ops
+(`models/codecs/sigmavae._block` does).
 """
 from __future__ import annotations
 
@@ -43,6 +49,9 @@ def convnext_block(x, norm, dw_w, dw_b, up_w, up_b, down_w, down_b,
                    eps: float = 1e-6) -> torch.Tensor:
     """See `convnext_block_plain`."""
     tensors = [x, norm, dw_w, dw_b, up_w, up_b, down_w, down_b]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError("convnext_block has no backward: call it under torch.no_grad() "
+                           "or with inputs that do not require a gradient")
     if _build.on_cpu(*tensors):
         return convnext_block_plain(x, norm, dw_w, dw_b, up_w, up_b, down_w,
                                     down_b, eps)

@@ -9,11 +9,14 @@ lr 0), and optax's `clip_by_global_norm`.
 p - lr * (m_hat / (sqrt(v_hat) + eps) + wd * p), the decay taken on the
 parameter before the update. The schedule is a plain function behind a
 `LambdaLR` stepped once an update.
+
+Also optax's `cosine_decay_schedule` and `adam` over it, which the codec
+demo, the CTC ASR and the speaker embedder train with.
 """
 from __future__ import annotations
 
 import math
-from typing import Iterable, List
+from typing import Callable, Iterable, List
 
 import torch
 
@@ -28,6 +31,27 @@ def warmup_cosine(step: int, peak: float, warmup_steps: int, total_steps: int) -
     decay = max(total_steps, 2) - warmup
     count = min(step - warmup, decay)
     return peak * 0.5 * (1.0 + math.cos(math.pi * count / decay))
+
+
+def cosine_decay(init: float, decay_steps: int, alpha: float = 0.0) -> Callable[[int], float]:
+    """optax.cosine_decay_schedule: init * ((1 - alpha) * 0.5 * (1 +
+    cos(pi * min(n, T) / T)) + alpha)."""
+    def schedule(n: int) -> float:
+        c = min(n, decay_steps)
+        return init * ((1.0 - alpha) * 0.5 * (1.0 + math.cos(math.pi * c / decay_steps))
+                       + alpha)
+
+    return schedule
+
+
+def adam_cosine(leaves, lr: float, steps: int, alpha: float):
+    """optax.adam(cosine_decay_schedule(lr, steps, alpha)): torch Adam (b1
+    0.9, b2 0.999, eps 1e-8, no weight decay) behind a LambdaLR; the
+    schedule is evaluated at the count of updates made so far."""
+    opt = torch.optim.Adam(leaves, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    sched = cosine_decay(lr, steps, alpha)
+    return opt, torch.optim.lr_scheduler.LambdaLR(
+        opt, (lambda n: sched(n) / lr) if lr else (lambda n: 0.0))
 
 
 def lr_at(cfg: TrainConfig, step: int) -> float:

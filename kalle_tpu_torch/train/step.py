@@ -32,6 +32,21 @@ class TrainState:
     scheduler: torch.optim.lr_scheduler.LRScheduler
     step: int = 0
 
+    def state_dict(self) -> dict:
+        """What a checkpoint holds (core/checkpoint.CheckpointManager)."""
+        return {"step": self.step, "params": self.params,
+                "optimizer": self.optimizer.state_dict(),
+                "scheduler": self.scheduler.state_dict()}
+
+    def load_state_dict(self, sd: dict) -> None:
+        """Copy a `state_dict` into this state's tensors and optimizer."""
+        from ..core.checkpoint import copy_leaves_
+
+        copy_leaves_(self.params, sd["params"], f"checkpoint step {sd['step']} params")
+        self.optimizer.load_state_dict(sd["optimizer"])
+        self.scheduler.load_state_dict(sd["scheduler"])
+        self.step = int(sd["step"])
+
 
 def make_train_state(params: dict, tcfg: TrainConfig) -> TrainState:
     leaves = tree_leaves(params)

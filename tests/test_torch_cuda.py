@@ -19,7 +19,9 @@ plain path, and whole paths on the card against the CPU: `generate` on the
 tiny f32 config (dense, int8, fused and int4 weights) and at batch 72, the tiny codec
 in bf16, the continuous batcher, the tiny Oobleck and mel-VAE codecs in f32 (TF32
 off; no kernel of the port: cuDNN convs), and `cfg_generate` v1/v2 of the tiny f32
-int8 model (K1-K3 in both branches). Needs an NVIDIA GPU and nvcc; skipped elsewhere. On
+int8 model (K1-K3 in both branches); K4 raising under autograd, and a bf16 sigma codec's
+generator step (0 K4 launches, nonzero encoder gradients) beside its encode under no_grad
+(K4 in every block). Needs an NVIDIA GPU and nvcc; skipped elsewhere. On
 the card (this file imports no JAX, so no conftest):
 
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_cuda.py
@@ -816,3 +818,50 @@ def test_cfg_generate_tiny_f32_int8_on_card(g, variant):
     ref, got = out["cpu"], out["cuda"]
     assert torch.equal(got.n_frames.cpu(), ref.n_frames)
     torch.testing.assert_close(got.samples.cpu(), ref.samples, atol=1e-4, rtol=1e-4)
+
+
+def test_convnext_block_raises_under_autograd(g):
+    """K4 has no backward: on inputs that require a gradient, with autograd
+    recording, the wrapper raises instead of returning a detached output;
+    under no_grad the same inputs launch K4."""
+    c = 64
+    r = lambda *s: (0.3 * torch.randn(*s, generator=g, device="cuda")).to(BF)
+    args = [1 + r(c), r(7, 1, c), r(c), r(1, c, 4 * c), r(4 * c), r(1, 2 * c, c), r(c)]
+    x = r(2, 40, c).requires_grad_(True)
+    before = _build.launches().get(k4.NAME, 0)
+    with pytest.raises(RuntimeError, match="no backward"):
+        k4.convnext_block(x, *args)
+    with torch.no_grad():
+        k4.convnext_block(x, *args)
+    assert _build.launches().get(k4.NAME, 0) - before == 1
+
+
+def test_sigma_bf16_generator_step_on_card(g):
+    """A bf16 sigma codec's generator step on the card runs its residual
+    blocks unfused (0 K4 launches) and gives the encoder nonzero gradients;
+    its inference encode under no_grad still takes K4 in every block."""
+    from kalle_tpu_torch.bridge import tree_leaves, tree_map
+    from kalle_tpu_torch.models.codecs import discriminators as disc
+    from kalle_tpu_torch.models.codecs import sigmavae
+    from kalle_tpu_torch.train import codec_trainer as ct
+
+    cfg = sigmavae.SigmaVAEConfig(latent_dim=16, strides=(2, 2), channels=(16, 32),
+                                  blocks_per_stage=1)
+    dcfg = disc.DiscriminatorConfig.tiny()
+    gen = tree_map(lambda t: t.to(BF), sigmavae.init_params(cfg, g, "cuda"))
+    dp = tree_map(lambda t: t.to(BF), disc.init_params(dcfg, g, "cuda"))
+    tx = ct.make_codec_optimizer(1e-3)
+    st = ct.make_state(gen, dp, tx, tx)
+    wav = (0.3 * torch.randn(2, 1, 2048, generator=g, device="cuda")).to(BF)
+    _build.reset_launches()
+    wav_hat, kl = ct._reconstruct("sigma", cfg, st.gen_params, wav, g)
+    enc = tree_leaves(st.gen_params["encoder"])
+    grads = torch.autograd.grad(wav_hat.float().pow(2).mean() + kl.float(), enc)
+    assert sum(float(x.float().abs().sum()) for x in grads) > 0
+    st, m = ct.generator_step(st, "sigma", cfg, dcfg, ct.LossWeights(), wav, g,
+                              resolutions=((256, 64, 256),))
+    assert all(torch.isfinite(v.float()) for v in m.values())
+    assert _build.launches().get(k4.NAME, 0) == 0
+    with torch.no_grad():
+        sigmavae.encode(st.gen_params, cfg, wav)
+    assert _build.launches().get(k4.NAME, 0) == len(cfg.strides) * cfg.blocks_per_stage

@@ -34,4 +34,7 @@ def test_scan_sees_the_package():
             "trainer.py", "datasets.py", "checkpoint.py", "serve_loop.py", "service.py",
             "http.py", "web.py", "audio.py", "pipeline.py", "cli.py", "batch_cli.py",
             "app.py", "oobleck.py", "melvae.py", "ecapa.py", "mrte.py", "variants.py",
-            "cfg.py", "streaming.py", "online.py", "mel.py", "alias_free.py"} <= names
+            "cfg.py", "streaming.py", "online.py", "mel.py", "alias_free.py",
+            "codec_trainer.py", "discriminators.py", "codec_losses.py", "flow_kl.py",
+            "synth_speech.py", "ctc_asr.py", "speaker_embedder.py", "wer.py", "harness.py",
+            "codec_demo.py"} <= names
