@@ -131,6 +131,20 @@ Phases (any failure exits nonzero and prints no result):
      every file written, finite values, K1-K4's launches exact; (e)
      `kalle_tpu_torch.train.codec_demo --size small --steps 4 --gan` in
      process, its last line the JAX tool's keys.
+ 10. parallelism: (a) the mesh paths at world size 1 over NCCL (a
+     one-rank group through a file store): `Trainer.fit` of phase 4's
+     model at depth 4 for 8 steps with dp=-1, tp=1, pp=1 and then with
+     fsdp, losses and weights bit-identical to the same run with no
+     process group, ms a step the median of steps 2-8; `ContinuousBatcher(mesh=make_mesh(dp=1, tp=1))` over
+     16 greedy requests at batch 8 (64 frames) bit-identical to
+     mesh=None; ms a step of each; launches exact; (b) `parallel/tp_probe`
+     at tp 2, 4 and 8: each rank's decode layer halves at full width
+     (int8, batch 32, cache 384; K1 at 8/tp KV heads, K2 on the column
+     and row shards and the fused wqkv, K3 on F/tp and its fused mode)
+     and one training attention forward and backward through K5-K7 at
+     32/tp heads, every kernel against its plain version (phase 2's bf16
+     tolerances), the launches exact, and the partials summed over the
+     ranks against the unsharded layer (2e-2 of the largest magnitude).
 
 Phase 1 fails if a bf16 instance of K1, K3 or K4 (or K6/K7 at hd 64) spills.
 Phase 2 holds K3 at M 8, 32 and 72 (1e-2 relative) and K4 at the five
@@ -162,9 +176,10 @@ fused mode bit-identical to the unfused K3, K2's within bf16 tolerance of
 three launches, both reruns bit-identical, K2 beside `torch.matmul`. Launch counts: K1-K3 from
 phase 3's run, K4 from phase 3's and phase 6's counted runs, K5-K7 from
 phase 4's, K1's sideband from phase 5's batch-32 run, each plus phase 7's
-counted runs and phase 8's ((a)-(d) for K1-K3, (e) for K5-K7) and phase 9's
-scoring run (K1-K4); the fused layout's K2 and K3 rows from phase 7's fused
-generate runs.
+counted runs and phase 8's ((a)-(d) for K1-K3, (e) for K5-K7), phase 9's
+scoring run (K1-K4) and phase 10(a)'s mesh runs (K1's sideband, K2, K3,
+K5-K7); the fused layout's K2 and K3 rows from phase 7's fused generate
+runs.
 
 Prints a `kernels` JSON line, the card line, and as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
@@ -3219,6 +3234,159 @@ def phase_codec_training(card: str) -> dict:
     return counts
 
 
+# --------------------------------------------------------------- phase 10 ---
+# (a): the trainer's depth (full width, depth cut) and steps; the batcher's
+# requests, batch and frames
+P10_LAYERS, P10_STEPS, P10_REQS, P10_B, P10_FRAMES = 4, 8, 16, 8, 64
+P10_TP = (2, 4, 8)
+
+
+def p10_fit(root: str, tag: str, fsdp: bool = False):
+    """Trainer.fit of phase 4's model at depth P10_LAYERS for P10_STEPS steps
+    (a process group or none, as the caller set it up). -> (losses,
+    params after, ms a step of the steps after the first, launches)."""
+    import shutil
+
+    from kalle_tpu_torch.bridge import tree_leaves
+    from kalle_tpu_torch.core.config import (DataConfig, ExperimentConfig, LlamaConfig,
+                                             LlasaConfig, TrainConfig)
+    from kalle_tpu_torch.data.tokens import build_tokenizer
+    from kalle_tpu_torch.ops.kernels import _build
+    from kalle_tpu_torch.train.trainer import Trainer
+
+    model = LlasaConfig(llama=LlamaConfig(num_layers=P10_LAYERS, use_flash_attention=True),
+                        latent_dim=64, audio_proj_dim=2048, head_variant="sigma")
+    exp_dir = os.path.join(root, f"p10_{tag}")
+    exp = ExperimentConfig(
+        project_name="p10", exp_dir=exp_dir, model=model,
+        train=TrainConfig(lr=5e-5, warmup_steps=2, total_steps=1000,
+                          gradient_accumulation_steps=TRAIN_A, log_interval=1,
+                          save_interval=10 ** 9, seed=0, fsdp=fsdp),
+        data=DataConfig(meta_path=os.path.join(root, "meta.jsonl"), batch_size=TRAIN_B,
+                        use_dynamic=False, num_workers=1, prefetch_size=4,
+                        length_buckets=(TRAIN_T,), max_length=TRAIN_T))
+    trainer = Trainer(exp, build_tokenizer(), device="cuda")
+    _build.reset_launches()
+    trainer.fit(max_steps=P10_STEPS)
+    launches = {k: v for k, v in _build.launches().items() if v}
+    expect = P10_LAYERS * TRAIN_A * P10_STEPS
+    if launches != {"flash_fwd": expect, "flash_bwd_dq": expect, "flash_bwd_dkv": expect}:
+        raise AssertionError(f"train {tag}: launches {launches}, the path implies {expect} "
+                             "of each of K5-K7")
+    losses = [h["total_loss"] for h in trainer.history]
+    params = [p.detach().clone() for p in tree_leaves(trainer.state.params)]
+    ms = sorted(1e3 / h["steps_per_s"] for h in trainer.history[1:])
+    mesh = None if trainer.mesh is None else trainer.mesh.shape
+    del trainer
+    shutil.rmtree(exp_dir)
+    torch.cuda.empty_cache()
+    return losses, params, ms[len(ms) // 2], launches, mesh
+
+
+def p10_serve(params: dict, prompts: list, mesh=None):
+    """Greedy ContinuousBatcher.run of the prompts at batch P10_B, P10_FRAMES
+    frames. -> (completions by index, ms a decode step, launches)."""
+    from kalle_tpu_torch.infer.serve_loop import ContinuousBatcher
+    from kalle_tpu_torch.ops.kernels import _build
+
+    cfg = flagship()
+    cb = ContinuousBatcher(params, cfg, batch_size=P10_B, max_frames=P10_FRAMES,
+                           prompt_buckets=SERVE_BUCKETS, greedy=True, mesh=mesh)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    comps = {c.index: c for c in cb.run(prompts)}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in _build.launches().items() if v}
+    L, steps = cfg.llama.num_layers, cb.step_count
+    expect = {"decode_attention_sideband": L * steps, "qmm": 4 * L * steps,
+              "fused_mlp": L * steps}
+    if launches != expect or sorted(comps) != list(range(len(prompts))):
+        raise AssertionError(f"serve (mesh {mesh is not None}): launches {launches}, the "
+                             f"path implies {expect}; completions {sorted(comps)}")
+    return comps, wall / steps * 1e3, launches
+
+
+def p10_world1(card: str, root: str) -> dict:
+    """(a) The mesh paths at world size 1 over NCCL against the same runs
+    without a process group: bit-identical. Returns the mesh runs' launches."""
+    import torch.distributed as dist
+
+    from kalle_tpu_torch.data.tokens import build_prompt_ids, build_tokenizer
+    from kalle_tpu_torch.parallel import multihost
+    from kalle_tpu_torch.parallel.mesh import make_mesh, shard_params
+
+    log(f"# phase 10(a): the mesh paths at world size 1 over NCCL: Trainer.fit at full "
+        f"width, depth {P10_LAYERS}, batch {TRAIN_B} x {TRAIN_T}, {TRAIN_A} microbatches, "
+        f"{P10_STEPS} steps (dp=-1 tp=1 pp=1, then fsdp); ContinuousBatcher of "
+        f"{P10_REQS} greedy requests at batch {P10_B}, {P10_FRAMES} frames")
+    write_latents(root, TRAIN_B * TRAIN_A * P10_STEPS)
+    alone = p10_fit(root, "alone")
+    tok = build_tokenizer()
+    prompts = [np.asarray(build_prompt_ids(tok, t))
+               for t in serve_texts(P10_REQS, np.random.default_rng(10))]
+    params = flagship_int8(torch.Generator(device="cuda").manual_seed(0))  # phase 3's weights
+    serve_alone = p10_serve(params, prompts)
+    counts: dict = {}
+    multihost.initialize(init_method="file://" + os.path.join(root, "store"), world_size=1,
+                         rank=0, device="cuda")
+    try:
+        if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+            raise AssertionError(f"expected one NCCL rank, got {dist.get_backend()} x "
+                                 f"{dist.get_world_size()}")
+        ms = {"alone": alone[2]}
+        for fsdp in (False, True):
+            tag = "fsdp" if fsdp else "mesh"
+            losses, got, ms[tag], launches, shape = p10_fit(root, tag, fsdp)
+            same = losses == alone[0] and all(torch.equal(a, b) for a, b in zip(got, alone[1]))
+            log(f"  Trainer.fit on mesh {shape}{' fsdp' if fsdp else ''}: losses {losses} "
+                f"bit-identical to the run without a process group: {same}")
+            if not same:
+                raise AssertionError(f"{tag}: the world-1 mesh run differs from the run "
+                                     f"without a process group ({alone[0]})")
+            for k, v in launches.items():
+                counts[k] = counts.get(k, 0) + v
+            del got
+        log(f"train world1 ms_per_step no_group {ms['alone']:.2f} mesh {ms['mesh']:.2f} "
+            f"fsdp {ms['fsdp']:.2f} (median of steps 2..{P10_STEPS}) card {card}")
+        mesh = make_mesh(dp=1, tp=1, device_type="cuda")
+        comps, serve_ms, launches = p10_serve(shard_params(params, mesh), prompts, mesh)
+        for i, c in serve_alone[0].items():
+            d = comps[i]
+            if not (c.n_frames == d.n_frames and np.array_equal(c.means, d.means)
+                    and np.array_equal(c.samples, d.samples)
+                    and np.array_equal(c.log_scales, d.log_scales)):
+                raise AssertionError(f"request {i}: the mesh batcher's completion differs")
+        for k, v in launches.items():
+            counts[k] = counts.get(k, 0) + v
+        log(f"  ContinuousBatcher(mesh=make_mesh(dp=1, tp=1)): {len(comps)} completions "
+            "bit-identical to mesh=None")
+        log(f"serve world1 ms_per_step no_group {serve_alone[1]:.4f} mesh {serve_ms:.4f} "
+            f"(batch {P10_B}, admission and prefill included) card {card}")
+    finally:
+        dist.destroy_process_group()
+    return counts
+
+
+def phase_parallel(card: str) -> dict:
+    """Phase 10: (a) the world-1 mesh paths, (b) the tp shard shapes
+    (parallel/tp_probe.py) at tp 2, 4 and 8. Returns (a)'s launches."""
+    from kalle_tpu_torch.parallel import tp_probe
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        counts = p10_world1(card, root)
+    log(f"# phase 10(b): tp shard shapes at full width, bf16, int8 layer weights, batch "
+        f"{BATCH}, cache {SERVE_CACHE}; training attention at batch {TRAIN_B} x {TRAIN_T}")
+    g = torch.Generator(device="cuda").manual_seed(10)
+    for tp in P10_TP:
+        tp_probe.check(flagship().llama, tp, batch=BATCH, cache_len=SERVE_CACHE,
+                       train_batch=TRAIN_B, train_t=TRAIN_T, g=g, log=log)
+    log(f"phase 10 s {time.perf_counter() - t0:.1f}")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3251,6 +3419,10 @@ def main() -> int:
     p9 = phase_codec_training(card)
     for name in K1_K4:
         launches[name] = launches.get(name, 0) + p9.get(name, 0)
+    p10 = phase_parallel(card)
+    launches["decode_attention_sideband"] += p10.get("decode_attention_sideband", 0)
+    for name in ("qmm", "fused_mlp", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        launches[name] = launches.get(name, 0) + p10.get(name, 0)
     for r in rows:
         r["launches"] = launches.get(r["name"], 0)
         r["route"] = "cuda"

@@ -4,10 +4,10 @@ Frozen dataclasses with the same names and defaults as the JAX package's
 `kalle_tpu/core/config.py` (`RopeScaling`, `LlamaConfig`, `LlasaConfig`,
 `TrainConfig`, `DataConfig`, `ExperimentConfig`) and its YAML loader,
 copied rather than imported so the port never loads the JAX package. The
-TPU-only switches (pipeline schedules, scan unrolling, the decode-kernel
-batch gate) and the fields only unported code reads (speaker and flow KL
-weights, speaker dropout, stream delay, codec paths) are left out; YAML
-keys naming them are ignored.
+TPU-only switches (scan unrolling, the decode-kernel batch gate) and the
+fields only unported code reads (speaker and flow KL weights, speaker
+dropout, stream delay, codec paths) are left out; YAML keys naming them
+are ignored.
 """
 from __future__ import annotations
 
@@ -58,6 +58,15 @@ class LlamaConfig:
     # "int8" stores the KV cache quantized with per-(token, kv-head) absmax
     # scales; anything else keeps it in `dtype`
     kv_cache_dtype: str = "bfloat16"
+    # microbatches streamed through the pipeline stages when the mesh has a
+    # pp axis (parallel/pipeline.py); the per-rank batch must divide by it.
+    # Bubble fraction (pp - 1) / (pp_microbatches + pp - 1)
+    pp_microbatches: int = 4
+    # pipeline training schedule when pp > 1: "gpipe" (every microbatch's
+    # stage inputs live through the backward, parallel/pipeline.py) or
+    # "1f1b" (at most pp in flight, parallel/pipeline_1f1b.py); same loss
+    # and gradients. Forwards outside training always run GPipe
+    pp_schedule: str = "gpipe"
 
     @staticmethod
     def tiny(vocab_size: int = 300) -> "LlamaConfig":
@@ -112,8 +121,9 @@ class LlasaConfig:
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """Training hyperparameters (JAX `TrainConfig`). dp/tp/fsdp/pp are read
-    from the YAML but the port trains on one device: the mesh waits."""
+    """Training hyperparameters (JAX `TrainConfig`). dp/tp/fsdp/pp size the
+    mesh (parallel/mesh.make_mesh; dp -1 takes the ranks the others leave)
+    when a process group is initialized."""
 
     lr: float = 5e-5
     weight_decay: float = 1e-2

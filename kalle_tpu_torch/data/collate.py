@@ -114,26 +114,33 @@ def pad_batch_rows(batch: Dict[str, np.ndarray], multiple: int,
     return out
 
 
+def pad_batch_to(batch: Dict[str, np.ndarray], lead_shape, pad_token_id: int
+                 ) -> Dict[str, np.ndarray]:
+    """Pad every array's leading dimensions ((B, T), or (A, B, T) for
+    microbatch stacks) up to `lead_shape` with loss-neutral values (pad
+    token, ones-init labels, zero masks)."""
+    out = dict(batch)
+    for k, v in batch.items():
+        if not isinstance(v, np.ndarray):
+            continue
+        tgt = tuple(lead_shape) + v.shape[len(lead_shape):]
+        if v.shape != tgt:
+            fill = pad_token_id if k == "input_ids" else 1 if k == "distribute_labels" else 0
+            p = np.full(tgt, fill, v.dtype)
+            p[tuple(slice(0, s) for s in v.shape)] = v
+            out[k] = p
+    return out
+
+
 def stack_microbatches(batches: List[Dict[str, np.ndarray]],
                        pad_token_id: int) -> Dict[str, np.ndarray]:
     """Stack A collated batches into (A, B, ...) arrays for gradient
     accumulation, padding each to the group's largest shape with
     loss-neutral values (pad token, ones-init labels, zero masks)."""
     keys = [k for k, v in batches[0].items() if isinstance(v, np.ndarray)]
-    out = {}
-    for k in keys:
-        arrs = [b[k] for b in batches]
-        tgt = tuple(max(a.shape[d] for a in arrs) for d in range(arrs[0].ndim))
-        fill = pad_token_id if k == "input_ids" else 1 if k == "distribute_labels" else 0
-        padded = []
-        for a in arrs:
-            if a.shape != tgt:
-                p = np.full(tgt, fill, a.dtype)
-                p[tuple(slice(0, s) for s in a.shape)] = a
-                a = p
-            padded.append(a)
-        out[k] = np.stack(padded, axis=0)
-    return out
+    lead = tuple(max(b["input_ids"].shape[d] for b in batches) for d in range(2))
+    padded = [pad_batch_to({k: b[k] for k in keys}, lead, pad_token_id) for b in batches]
+    return {k: np.stack([b[k] for b in padded], axis=0) for k in keys}
 
 
 class DynamicBatchGenerator:

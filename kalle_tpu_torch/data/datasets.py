@@ -74,11 +74,14 @@ class OfflineLatentDataset:
     CAPTION_KEYS = ("AudioSetCaps", "caption", "text")
 
     def __init__(self, meta_path_or_lines, tokenizer, latent_kind: str = "sigma",
-                 seed: int = 0, max_length: int = 2048):
+                 seed: int = 0, max_length: int = 2048, shard_index: int = 0,
+                 shard_count: int = 1):
         if isinstance(meta_path_or_lines, str):
             self.lines = read_jsonl(meta_path_or_lines)
         else:
             self.lines = list(meta_path_or_lines)
+        if shard_count > 1:  # a dp rank reads its own rows
+            self.lines = self.lines[shard_index::shard_count]
         self.tokenizer = tokenizer
         self.latent_kind = latent_kind
         self.max_length = max_length

@@ -16,11 +16,17 @@ Semantics kept from the JAX package:
     math, kept as is.
   * the LAST generated frame is discarded: n_frames = steps taken - 1.
   * the sigma head stores the SAMPLED latent; greedy=True emits the mean.
+
+Under a mesh (parallel/mesh.py; params from `shard_params`) each dp rank
+decodes its rows of the batch with the layers tensor-parallel over tp
+(n_kv/tp KV heads a cache), draws the whole batch's noise and keeps its
+rows (the draws of one process), and the results are all-gathered over
+dp: every rank returns the single-process result.
 """
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -36,8 +42,11 @@ class GenResult(NamedTuple):
     end_kl: torch.Tensor       # (b, max_frames) end-detector trace
 
 
-def _head_step(cfg: LlasaConfig, params, hidden, generator, greedy: bool = False):
-    """hidden (b, 1, h) -> (mean, log_scale, sample) each (b, 1, d)."""
+def _head_step(cfg: LlasaConfig, params, hidden, generator, greedy: bool = False,
+               rows: Optional[Tuple[int, int]] = None):
+    """hidden (b, 1, h) -> (mean, log_scale, sample) each (b, 1, d). rows =
+    (global rows, first row): the noise is drawn for the whole batch and
+    these b rows kept."""
     out = llasa.distribution_head(params, hidden, hidden.dtype)
     if cfg.head_variant == "sigma":
         mean = out
@@ -49,8 +58,9 @@ def _head_step(cfg: LlasaConfig, params, hidden, generator, greedy: bool = False
         std = torch.exp(logs)
     if greedy:
         return mean, logs, mean
-    noise = torch.randn(mean.shape, generator=generator, device=mean.device,
-                        dtype=mean.dtype)
+    total, first = rows or (mean.shape[0], 0)
+    noise = torch.randn((total,) + mean.shape[1:], generator=generator, device=mean.device,
+                        dtype=mean.dtype)[first:first + mean.shape[0]]
     return mean, logs, mean + std * noise
 
 
@@ -68,6 +78,7 @@ def generate(
     prompt_latents_mask: Optional[torch.Tensor] = None,  # (b, tl) 1 = real frame
     embed_bias: Optional[torch.Tensor] = None,           # (b, h) per-frame conditioning
     greedy: bool = False,
+    mesh=None,
 ) -> GenResult:
     """Batched TTS generation: prompt ids -> latent frames, on the device
     of `input_ids`. `generator` draws the sampling noise (a fresh one seeded
@@ -80,6 +91,34 @@ def generate(
     prompt frames as one left-padded run, as in the JAX package. The
     `embed_bias` is added to every prefill position (pads too) and to every
     generated frame's input embed."""
+    tp, rows, n_kv = None, None, cfg.llama.num_kv_heads
+    if mesh is not None:
+        from ..parallel.collectives import gather_dim
+        from ..parallel.mesh import DP_AXIS, TP_AXIS
+
+        n_dp = mesh.size(DP_AXIS)
+        if input_ids.shape[0] % n_dp:
+            raise ValueError(f"{input_ids.shape[0]} rows do not split over dp={n_dp}")
+        b_loc = input_ids.shape[0] // n_dp
+        first = mesh.rank(DP_AXIS) * b_loc
+        rows = (input_ids.shape[0], first)
+        input_ids, prompt_mask, prompt_latents, prompt_latents_mask, embed_bias = (
+            None if a is None else a[first:first + b_loc]
+            for a in (input_ids, prompt_mask, prompt_latents, prompt_latents_mask,
+                      embed_bias))
+        tp = mesh.group(TP_AXIS) if mesh.size(TP_AXIS) > 1 else None
+        n_kv //= mesh.size(TP_AXIS)
+    out = _generate(params, cfg, input_ids, prompt_mask, generator, max_frames, cache_len,
+                    end_kl_threshold, prompt_latents, prompt_latents_mask, embed_bias,
+                    greedy, tp, rows, n_kv)
+    if mesh is None:
+        return out
+    return GenResult(*(gather_dim(a, 0, mesh.group(DP_AXIS)) for a in out))
+
+
+def _generate(params, cfg: LlasaConfig, input_ids, prompt_mask, generator, max_frames,
+              cache_len, end_kl_threshold, prompt_latents, prompt_latents_mask, embed_bias,
+              greedy, tp_group, rows, n_kv) -> GenResult:
     lcfg = cfg.llama
     dt = torch_dtype(lcfg.dtype)
     dev = input_ids.device
@@ -113,11 +152,12 @@ def generate(
     # left-padded: local position = slot - n_pads
     n_pads = t_pre - pmask.sum(dim=1)
     positions = (torch.arange(t_pre, device=dev)[None, :] - n_pads[:, None]).clamp_min(0)
-    cache = llama.KVCache.zeros(lcfg, b, cache_len, device=dev)
+    cache = llama.KVCache.zeros(lcfg, b, cache_len, device=dev, n_kv=n_kv)
     valid = torch.zeros((b, cache_len), dtype=torch.bool, device=dev)
     valid[:, :t_pre] = pmask
     hidden, cache = llama.forward_with_cache(params["llama"], lcfg, embeds, cache,
-                                             attention_mask=valid, positions=positions)
+                                             attention_mask=valid, positions=positions,
+                                             tp=tp_group)
     hidden = hidden[:, -1:, :]
 
     d = cfg.latent_dim
@@ -132,7 +172,7 @@ def generate(
     for i in range(max_frames):
         if bool(done.all()):
             break
-        mean, lg, sample = _head_step(cfg, params, hidden, generator, greedy)
+        mean, lg, sample = _head_step(cfg, params, hidden, generator, greedy, rows)
         kl = llasa.end_kl(cfg, mean, torch.exp(lg.float()))[:, 0]
         live = ~done
         keep = live[:, None]
@@ -151,7 +191,7 @@ def generate(
         valid[:, cache.length] = live
         hidden, cache = llama.forward_with_cache(
             params["llama"], lcfg, a_embed, cache, attention_mask=valid,
-            positions=pos[:, None])
+            positions=pos[:, None], tp=tp_group)
         pos = pos + live.long()
 
     return GenResult(means=means, log_scales=logs, samples=samples,

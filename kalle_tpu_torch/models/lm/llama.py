@@ -33,6 +33,22 @@ The training forward (`forward`) attends through K5-K7
 and t % 128 == 0, else through `mha` with the causal padding mask. f32
 master weights are cast to cfg.dtype where they are used, so their
 gradients land in f32.
+
+Parallelism (parallel/, a `Layout` or a tp process group passed in):
+  * tp, Megatron (port of kalle_tpu/models/lm/llama.py:200-267): a layer
+    holds this rank's column shards of wq/wk/wv/wg/wu and row shards of
+    wo/wd, so it runs n_q/tp query and n_kv/tp KV heads (counted from the
+    shard shapes) and F/tp FFN columns through the same kernels. Each half
+    of a layer (`attention_block`, `mlp_block`) returns its row-parallel
+    partial; `_layer` feeds them the normed input through f and sums them
+    through g (parallel/collectives.py). The KV cache holds n_kv/tp heads;
+  * sp: between layers a rank holds its slice of t; q, k and v are
+    all-gathered along t (backward: reduce-scatter), attention runs over
+    the whole t and each rank keeps its own rows; RoPE positions are
+    global;
+  * fsdp: each layer's weights are all-gathered over dp at their use
+    (`Layout.use_layer`), inside the remat region when cfg.remat;
+  * pp: the stages' layers run as a GPipe pipeline (parallel/pipeline.py).
 """
 from __future__ import annotations
 
@@ -42,6 +58,7 @@ from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils import checkpoint as ckpt
 
@@ -51,6 +68,7 @@ from ...ops.kernels.decode_attention import decode_attention_cached
 from ...ops.kernels.flash_attention import flash_attention
 from ...ops.kernels.qmm import fused_mlp, qmm
 from ...ops.quant import is_grouped, is_quantized, maybe_matmul
+from ...parallel.collectives import all_gather, copy_to, reduce_from
 
 
 @dataclass
@@ -70,8 +88,10 @@ class KVCache:
         return self.k.shape[-1]
 
     @staticmethod
-    def zeros(cfg: LlamaConfig, batch: int, max_len: int, device="cuda") -> "KVCache":
-        nkv, hd, L = cfg.num_kv_heads, cfg.head_dim, cfg.num_layers
+    def zeros(cfg: LlamaConfig, batch: int, max_len: int, device="cuda",
+              n_kv: Optional[int] = None) -> "KVCache":
+        """n_kv: the KV heads this rank holds (n_kv / tp under tp)."""
+        nkv, hd, L = n_kv or cfg.num_kv_heads, cfg.head_dim, cfg.num_layers
         int8 = cfg.kv_cache_dtype == "int8"
         dtype = torch.int8 if int8 else torch_dtype(cfg.dtype)
 
@@ -209,12 +229,35 @@ def _proj(x: torch.Tensor, w, decode: bool) -> torch.Tensor:
         *x.shape[:-1], w["q"].shape[-1])
 
 
+def _cols(w) -> int:
+    return (w["q"] if is_quantized(w) else w).shape[-1]
+
+
+def local_heads(cfg: LlamaConfig, lp: dict) -> Tuple[int, int]:
+    """(query heads, KV heads) of a layer's weights as this rank holds them:
+    all of them, or n/tp each under tp."""
+    hd, group = cfg.head_dim, cfg.num_heads // cfg.num_kv_heads
+    if "wqkv" in lp:  # q | k | v columns in the ratio group : 1 : 1
+        cols = _cols(lp["wqkv"])
+        nkv = cols // (hd * (group + 2))
+        nq, whole = group * nkv, cols == (group + 2) * nkv * hd
+    else:
+        nq, nkv = _cols(lp["wq"]) // hd, _cols(lp["wk"]) // hd
+        whole = (_cols(lp["wq"]), _cols(lp["wk"])) == (nq * hd, nkv * hd) and nq == group * nkv
+    if not whole or nkv == 0:
+        raise ValueError(f"a layer's q/k/v shards do not hold whole heads of {hd} in the "
+                         f"ratio {cfg.num_heads}:{cfg.num_kv_heads} (tp must divide "
+                         "num_kv_heads)")
+    return nq, nkv
+
+
 def _qkv(cfg: LlamaConfig, x: torch.Tensor, lp: dict, decode: bool):
     """The q (b, t, nq, hd), k and v (b, t, nkv, hd) projections of x (b,
-    t, h), before RoPE: three matmuls, or one over the fused `wqkv` split
-    into its q|k|v columns."""
+    t, h), before RoPE, for the heads this rank holds: three matmuls, or
+    one over the fused `wqkv` split into its q|k|v columns."""
     b, t, _ = x.shape
-    nq, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    nq, nkv = local_heads(cfg, lp)
+    hd = cfg.head_dim
     if "wqkv" in lp:
         q, k, v = _proj(x, lp["wqkv"], decode).split([nq * hd, nkv * hd, nkv * hd], dim=-1)
     else:
@@ -222,8 +265,9 @@ def _qkv(cfg: LlamaConfig, x: torch.Tensor, lp: dict, decode: bool):
     return q.reshape(b, t, nq, hd), k.reshape(b, t, nkv, hd), v.reshape(b, t, nkv, hd)
 
 
-def _mlp(x: torch.Tensor, lp: dict, decode: bool) -> torch.Tensor:
-    """SwiGLU MLP of x (..., h): the decode step streams int8 weights
+def mlp_block(x: torch.Tensor, lp: dict, decode: bool) -> torch.Tensor:
+    """SwiGLU MLP of the normed x (..., h) over this rank's FFN columns: the
+    row-parallel partial under tp. The decode step streams int8 weights
     through K3 (the fused `wgu` in its fused mode)."""
     fused = "wgu" in lp
     wg = lp["wgu"] if fused else lp["wg"]
@@ -237,25 +281,34 @@ def _mlp(x: torch.Tensor, lp: dict, decode: bool) -> torch.Tensor:
     return maybe_matmul(F.silu(g) * up, lp["wd"])
 
 
-def _layer(cfg: LlamaConfig, x: torch.Tensor, lp: dict, cos, sin, mask,
-           cache: Optional[KVCache] = None, li: int = 0,
-           flash_pad: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One transformer block. Without a cache it attends over its own
-    (b, t) keys: through the flash kernels when `flash_pad` (b, t) is
-    given, else with `mha` and mask (b, 1, t, kv) bool. With a cache it
-    writes its K/V at slots [cache.length, cache.length + t) of layer `li`
-    and attends over that layer of the cache."""
-    dt = x.dtype
-    b, t, _ = x.shape
-    nq, hd = cfg.num_heads, cfg.head_dim
+def attention_block(cfg: LlamaConfig, h: torch.Tensor, lp: dict, cos, sin, mask,
+                    cache: Optional[KVCache] = None, li: int = 0,
+                    flash_pad: Optional[torch.Tensor] = None, sp=None) -> torch.Tensor:
+    """Attention of the normed input h (b, t, hidden) over this rank's heads,
+    through wo (its row shard under tp): the row-parallel partial.
+
+    Without a cache it attends over its own (b, t) keys: through the flash
+    kernels when `flash_pad` (b, t) is given, else with `mha` and mask (b,
+    1, t, kv) bool. With a cache it writes its K/V at slots [cache.length,
+    cache.length + t) of layer `li` and attends over that layer of the
+    cache. With an sp group, h is this rank's slice of the sequence and
+    `flash_pad` / `mask` cover the whole of it."""
+    dt = h.dtype
+    b, t, _ = h.shape
+    hd = cfg.head_dim
     decode = t == 1 and cache is not None
 
-    q, k, v = _qkv(cfg, rms_norm(x, lp["attn_norm"].to(dt), cfg.rms_norm_eps), lp, decode)
+    q, k, v = _qkv(cfg, h, lp, decode)
+    nq = q.shape[2]
     q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    if sp is not None:
+        q, k, v = (all_gather(a, 1, sp) for a in (q, k, v))
 
     if cache is None:
         attn = (flash_attention(q, k, v, flash_pad) if flash_pad is not None
                 else mha(q, k, v, mask))
+        if sp is not None:  # this rank's rows
+            attn = attn.narrow(1, dist.get_rank(sp) * t, t)
     else:
         s0 = cache.length
         if s0 + t > cache.max_len:
@@ -278,9 +331,22 @@ def _layer(cfg: LlamaConfig, x: torch.Tensor, lp: dict, cos, sin, mask,
                 kt_l = (kt_l.float() * cache.k_scale[li]).to(dt)
                 vt_l = (vt_l.float() * cache.v_scale[li].transpose(-1, -2)).to(dt)
             attn = mha_t(q, kt_l, vt_l, mask)
+    return _proj(attn.reshape(b, t, nq * hd), lp["wo"], decode)
 
-    x = x + _proj(attn.reshape(b, t, nq * hd), lp["wo"], decode)
-    return x + _mlp(rms_norm(x, lp["mlp_norm"].to(dt), cfg.rms_norm_eps), lp, decode)
+
+def _layer(cfg: LlamaConfig, x: torch.Tensor, lp: dict, cos, sin, mask,
+           cache: Optional[KVCache] = None, li: int = 0,
+           flash_pad: Optional[torch.Tensor] = None, tp=None, sp=None) -> torch.Tensor:
+    """One transformer block (attention_block, then mlp_block, each on the
+    normed residual). `tp`: the tensor-parallel group (f before each
+    block, g after it) or None."""
+    dt = x.dtype
+    decode = x.shape[1] == 1 and cache is not None
+    h = copy_to(rms_norm(x, lp["attn_norm"].to(dt), cfg.rms_norm_eps), tp)
+    x = x + reduce_from(attention_block(cfg, h, lp, cos, sin, mask, cache, li, flash_pad, sp),
+                        tp)
+    h = copy_to(rms_norm(x, lp["mlp_norm"].to(dt), cfg.rms_norm_eps), tp)
+    return x + reduce_from(mlp_block(h, lp, decode), tp)
 
 
 def forward_with_cache(
@@ -290,11 +356,14 @@ def forward_with_cache(
     cache: KVCache,
     attention_mask: Optional[torch.Tensor] = None,  # (b, max_len) over cache
     positions: Optional[torch.Tensor] = None,  # (b, t) RoPE positions
+    tp=None,
 ) -> Tuple[torch.Tensor, KVCache]:
     """Prefill/decode forward. Writes K/V at [cache.length, cache.length+t)
     (in place) and attends over the whole static cache with
     position-validity masking. `positions` overrides the default RoPE
-    positions (per-row local positions for left-padded prompts)."""
+    positions (per-row local positions for left-padded prompts). `tp`: the
+    tensor-parallel group of tp-sharded params (the cache then holds
+    n_kv/tp heads) or None."""
     dt = torch_dtype(cfg.dtype)
     x = inputs_embeds.to(dt)
     b, t, _ = x.shape
@@ -312,7 +381,7 @@ def forward_with_cache(
     mask = (causal & valid[:, None, :])[:, None]   # (b, 1, t, max_len)
 
     for li, lp in enumerate(layer_params(params["layers"])):
-        x = _layer(cfg, x, lp, cos, sin, mask, cache, li)
+        x = _layer(cfg, x, lp, cos, sin, mask, cache, li, tp=tp)
     cache.length += t
     return rms_norm(x, params["final_norm"].to(dt), cfg.rms_norm_eps), cache
 
@@ -337,28 +406,82 @@ def _remat_context(cfg: LlamaConfig):
     return ckpt.noop_context_fn  # "full": recompute the whole layer
 
 
-def forward(params: dict, cfg: LlamaConfig, inputs_embeds: torch.Tensor,
-            attention_mask: torch.Tensor, use_flash: Optional[bool] = None
-            ) -> torch.Tensor:
-    """Full-sequence forward -> final hidden states (b, t, h).
-
-    use_flash: None follows cfg.use_flash_attention on the card and is off
-    on the CPU; True on the CPU runs the kernels' plain versions. Flash
-    needs t % 128 == 0 (every length bucket is a multiple of 128). With
-    cfg.remat each layer is a non-reentrant `torch.utils.checkpoint`."""
-    dt = torch_dtype(cfg.dtype)
-    x = inputs_embeds.to(dt)
-    t = x.shape[1]
-    cos, sin = rope_cos_sin(cfg, torch.arange(t, device=x.device))
-    if use_flash is None:
-        use_flash = cfg.use_flash_attention and x.is_cuda
-    flash_pad = attention_mask if use_flash and t % 128 == 0 else None
-    mask = None if flash_pad is not None else make_causal_padding_mask(attention_mask, t)
-    body = functools.partial(_layer, cfg, cos=cos, sin=sin, mask=mask, flash_pad=flash_pad)
-    for lp in layer_params(params["layers"]):
+def _run_layers(cfg: LlamaConfig, x: torch.Tensor, layers: dict, body) -> torch.Tensor:
+    """body(x, lp) over the stacked layers; with cfg.remat each layer is a
+    non-reentrant `torch.utils.checkpoint`."""
+    for lp in layer_params(layers):
         if cfg.remat:
             x = ckpt.checkpoint(body, x, lp, use_reentrant=False,
                                 context_fn=_remat_context(cfg))
         else:
             x = body(x, lp)
+    return x
+
+
+def forward(params: dict, cfg: LlamaConfig, inputs_embeds: torch.Tensor,
+            attention_mask: torch.Tensor, use_flash: Optional[bool] = None,
+            layout=None) -> torch.Tensor:
+    """Full-sequence forward -> final hidden states (b, t, h).
+
+    use_flash: None follows cfg.use_flash_attention on the card and is off
+    on the CPU; True on the CPU runs the kernels' plain versions. Flash
+    needs t % 128 == 0 (every length bucket is a multiple of 128). With
+    cfg.remat each layer is a non-reentrant `torch.utils.checkpoint`.
+
+    layout (parallel.mesh.Layout): params hold this rank's shards. Under sp
+    the result is this rank's slice of t (`layout.seq_slice`); under pp
+    the layers run as a GPipe pipeline and every stage gets the whole
+    result."""
+    dt = torch_dtype(cfg.dtype)
+    x = inputs_embeds.to(dt)
+    b, t = x.shape[:2]
+    positions = torch.arange(t, device=x.device)
+    if use_flash is None:
+        use_flash = cfg.use_flash_attention and x.is_cuda
+    flash_pad = attention_mask if use_flash and t % 128 == 0 else None
+    mask = None if flash_pad is not None else make_causal_padding_mask(attention_mask, t)
+    tp = sp = None
+    if layout is not None:
+        from ...parallel.mesh import PP_AXIS
+
+        tp, sp = layout.tp, layout.sp
+        if layout.mesh.size(PP_AXIS) > 1:
+            x = _pipelined(cfg, x, params["layers"], mask, flash_pad, tp, layout)
+            return rms_norm(x, params["final_norm"].to(dt), cfg.rms_norm_eps)
+        if sp is not None:
+            start, n = layout.seq_slice(t)
+            x, positions = x[:, start:start + n], positions[start:start + n]
+    cos, sin = rope_cos_sin(cfg, positions)
+
+    def body(x, lp):
+        if layout is not None:
+            lp = layout.use_layer(lp)
+        return _layer(cfg, x, lp, cos, sin, mask, flash_pad=flash_pad, tp=tp, sp=sp)
+
+    x = _run_layers(cfg, x, params["layers"], body)
     return rms_norm(x, params["final_norm"].to(dt), cfg.rms_norm_eps)
+
+
+def pipeline_stage(cfg: LlamaConfig, x: torch.Tensor, mask, flash_pad, tp, n_mb: int):
+    """stage(h, stage_layers, m): a pipeline stage's layers (L / pp of the
+    stack) on microbatch m of x's rows, with its rows of the masks."""
+    mb = x.shape[0] // n_mb
+    cos, sin = rope_cos_sin(cfg, torch.arange(x.shape[1], device=x.device))
+
+    def stage(h, stage_layers, m):
+        rows = slice(m * mb, (m + 1) * mb)
+        body = functools.partial(
+            _layer, cfg, cos=cos, sin=sin, mask=None if mask is None else mask[rows],
+            flash_pad=None if flash_pad is None else flash_pad[rows], tp=tp)
+        return _run_layers(cfg, h, stage_layers, body)
+
+    return stage
+
+
+def _pipelined(cfg: LlamaConfig, x, layers, mask, flash_pad, tp, layout):
+    from ...parallel.mesh import PP_AXIS
+    from ...parallel.pipeline import pipelined_layer_stack
+
+    n_mb = cfg.pp_microbatches
+    stage = pipeline_stage(cfg, x, mask, flash_pad, tp, n_mb)
+    return pipelined_layer_stack(stage, layers, x, n_mb, layout.mesh.group(PP_AXIS))

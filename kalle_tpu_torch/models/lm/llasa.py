@@ -144,10 +144,10 @@ def head_kl(params: dict, cfg: LlasaConfig, hidden: torch.Tensor, labels: torch.
 
 
 def _head_losses(params: dict, cfg: LlasaConfig, hidden: torch.Tensor,
-                 batch: Dict[str, torch.Tensor], latents: torch.Tensor):
+                 batch: Dict[str, torch.Tensor], latents: torch.Tensor, counts=None):
     kl_elem, mean2, pre_log_scale = head_kl(params, cfg, hidden, batch["distribute_labels"])
     audio_loss, end_loss = masked_frame_loss(kl_elem, cfg.latent_dim,
-                                             batch["target_mask"], batch["end_mask"])
+                                             batch["target_mask"], batch["end_mask"], counts)
     extras = ({"ground_truth_audio_latents": latents}
               if cfg.head_variant == "sigma" else {})
     return {"audio_loss": audio_loss, "end_loss": end_loss, "pre_mean": mean2,
@@ -157,13 +157,29 @@ def _head_losses(params: dict, cfg: LlasaConfig, hidden: torch.Tensor,
 def forward(params: dict, cfg: LlasaConfig, batch: Dict[str, torch.Tensor],
             generator: Optional[torch.Generator] = None,
             latent_noise: Optional[torch.Tensor] = None,
-            use_flash: Optional[bool] = None) -> Dict[str, torch.Tensor]:
+            use_flash: Optional[bool] = None, layout=None) -> Dict[str, torch.Tensor]:
     """Training forward over a collated batch (input_ids (b, t);
     audio_latents (b, t, d); distribute_labels (b, t, d or 2d); ids_mask,
     audio_mask, target_mask, end_mask (b, t)). Returns audio_loss,
-    end_loss, pre_mean, pre_log_scale (+ the noised latents for sigma)."""
+    end_loss, pre_mean, pre_log_scale (+ the noised latents for sigma).
+
+    layout (parallel.mesh.Layout): the batch is this dp rank's rows and the
+    params its shards. The losses are then this rank's shares of the
+    global batch's: masked sums over its rows (and its slice of t under
+    sp) divided by the global mask counts, so the shares sum (over dp and
+    sp) to the single-process losses; the other outputs cover its rows
+    (and slice)."""
     input_embed, attention_mask, latents = embed_inputs(
         params, cfg, batch, generator=generator, latent_noise=latent_noise)
     hidden = llama.forward(params["llama"], cfg.llama, input_embed, attention_mask,
-                           use_flash=use_flash)
-    return _head_losses(params, cfg, hidden, batch, latents)
+                           use_flash=use_flash, layout=layout)
+    counts = None
+    if layout is not None:
+        counts = layout.sum_dp(torch.stack([batch["target_mask"].float().sum(),
+                                            batch["end_mask"].float().sum()]))
+        if layout.sp is not None:
+            start, n = layout.seq_slice(input_embed.shape[1])
+            batch = {k: batch[k][:, start:start + n]
+                     for k in ("distribute_labels", "target_mask", "end_mask")}
+            latents = latents[:, start:start + n]
+    return _head_losses(params, cfg, hidden, batch, latents, counts)

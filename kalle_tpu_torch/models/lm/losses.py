@@ -4,6 +4,8 @@ and divided by latent_dim, then averaged over the target / end masks; all
 in f32."""
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 
@@ -20,13 +22,17 @@ def gaussian_kl_same_std(mean1, std: float, mean2) -> torch.Tensor:
 
 
 def masked_frame_loss(kl_elem: torch.Tensor, latent_dim: int,
-                      target_mask: torch.Tensor, end_mask: torch.Tensor):
+                      target_mask: torch.Tensor, end_mask: torch.Tensor,
+                      counts: Optional[torch.Tensor] = None):
     """kl_elem (b, t, d) -> (audio_loss, end_loss): per-frame
-    kl.sum(-1) / latent_dim, then masked means."""
+    kl.sum(-1) / latent_dim, then masked means. counts: the (target, end)
+    mask counts of the global batch when this is a rank's share of it
+    (the shares then sum to the batch's means); default these masks'."""
     kl = kl_elem.sum(dim=2) / float(latent_dim)
     tm, em = target_mask.float(), end_mask.float()
-    audio_loss = (kl * tm).sum() / tm.sum().clamp_min(1.0)
-    end_loss = (kl * em).sum() / em.sum().clamp_min(1.0)
+    c_a, c_e = (tm.sum(), em.sum()) if counts is None else counts
+    audio_loss = (kl * tm).sum() / c_a.clamp_min(1.0)
+    end_loss = (kl * em).sum() / c_e.clamp_min(1.0)
     return audio_loss, end_loss
 
 

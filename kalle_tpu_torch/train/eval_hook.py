@@ -37,15 +37,17 @@ def make_eval_audio_hook(codec, out_dir: Optional[str] = None, every: int = 1):
         calls["n"] += 1
         if calls["n"] % every:
             return
-        d = out_dir or os.path.join(trainer.exp.exp_dir, trainer.exp.project_name,
-                                    "eval_audios")
-        os.makedirs(d, exist_ok=True)
         cfg = trainer.cfg
-        with torch.no_grad():
+        with torch.no_grad():  # every rank of a parallel run takes part
             out = llasa.forward(trainer.state.params, cfg,
                                 device_batch(np_batch, trainer.device),
                                 generator=torch.Generator(device=trainer.device)
-                                .manual_seed(step))
+                                .manual_seed(step), layout=trainer.state.layout)
+        if not trainer.main:  # the main process writes its first row's files
+            return
+        d = out_dir or os.path.join(trainer.exp.exp_dir, trainer.exp.project_name,
+                                    "eval_audios")
+        os.makedirs(d, exist_ok=True)
         audio_mask = np.asarray(np_batch["audio_mask"][0], bool)
         if not audio_mask.any():
             return

@@ -1,5 +1,5 @@
-"""The training loop on one device (port of kalle_tpu/train/trainer.py:
-data -> step -> metrics and checkpoints).
+"""The training loop (port of kalle_tpu/train/trainer.py: data -> step ->
+metrics and checkpoints).
 
 dataset -> PrefetchLoader -> an accumulation buffer of A batches ->
 `train_step`; a log line every `log_interval` steps in the JAX package's
@@ -16,8 +16,17 @@ in the JAX package); a reference Llasa checkpoint at `start_checkpoint`
 when that file exists (warm start). A checkpoint of this trainer's own,
 when there is one, then takes precedence (resume).
 
-Not ported yet: the dp/tp/pp mesh, fsdp and multi-host (a config asking
-for them raises).
+Parallel training: the trainer joins torchrun's process group when its
+environment is set (`parallel.multihost.initialize`). With a process group
+it builds the mesh from TrainConfig's dp/tp/pp (dp -1 takes the ranks the
+others leave), shards the params (fsdp: layer weights and AdamW moments
+at 1/(tp*dp)), and reads the dataset's dp shard; a dp rank's batch is
+padded with loss-neutral rows and positions to the largest shape any dp
+rank holds this step, so the ranks' batches form one global batch. A
+config asking for dp/tp/pp > 1 or fsdp without a process group raises.
+Only the main process writes metrics and checkpoints; a checkpoint holds
+the gathered full tensors (every rank takes part in the gather), so a run
+saved at one layout restores at another.
 """
 from __future__ import annotations
 
@@ -27,13 +36,16 @@ from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..bridge import params_from_jax
 from ..core.checkpoint import CheckpointManager, load_reference_llasa_checkpoint
 from ..core.config import ExperimentConfig
-from ..data.collate import stack_microbatches
+from ..data.collate import pad_batch_to, stack_microbatches
 from ..data.datasets import OfflineLatentDataset, PrefetchLoader
 from ..models.lm import llasa
+from ..parallel import multihost
+from ..parallel.mesh import DP_AXIS, data_shard, make_mesh, param_layout
 from .metrics import MetricsWriter
 from .step import make_train_state, train_step
 
@@ -61,16 +73,23 @@ class Trainer:
         self.tokenizer = tokenizer
         self.device = torch.device(device)
         t = self.tcfg
-        if t.tp > 1 or t.pp > 1 or t.dp > 1 or t.fsdp:
-            raise NotImplementedError("the port trains on one device: dp/tp/pp meshes "
-                                      "and fsdp are not ported yet")
+        multihost.initialize(device=self.device.type)
+        self.mesh = None
+        if dist.is_initialized() or t.dp > 1 or t.tp > 1 or t.pp > 1 or t.fsdp:
+            self.mesh = make_mesh(dp=t.dp, tp=t.tp, pp=t.pp, device_type=self.device.type)
+            self.device = self.mesh.device
+        self.main = multihost.is_main_process()
         os.makedirs(exp.output_dir, exist_ok=True)
         os.makedirs(exp.log_dir, exist_ok=True)
-        self.metrics = MetricsWriter(exp.log_dir)
+        self.metrics = MetricsWriter(exp.log_dir) if self.main else None
         self.ckpt = CheckpointManager(os.path.join(exp.output_dir, "torch"))
-        self.state = make_train_state(self._init_params(), self.tcfg)
+        params, layout = self._init_params(), None
+        if self.mesh is not None:
+            layout = param_layout(params, self.mesh, fsdp=t.fsdp, pp=t.pp > 1)
+            params = layout.shard(params)
+        self.state = make_train_state(params, self.tcfg, layout)
         self.state, self.start_step = self.ckpt.restore(self.state)
-        if self.start_step:
+        if self.start_step and self.main:
             print(f"resumed from step {self.start_step}")
         self.history: list = []  # the metrics of every log line
         self.profiler = None  # set by fit(profile_steps=...)
@@ -101,7 +120,19 @@ class Trainer:
         return params
 
     def _device_batch(self, np_batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        if self.mesh is not None:  # the dp ranks' batches as one global batch
+            lead = torch.tensor(np_batch["input_ids"].shape, device=self.device)
+            dist.all_reduce(lead, op=dist.ReduceOp.MAX, group=self.mesh.group(DP_AXIS))
+            np_batch = pad_batch_to({k: np_batch[k] for k in BATCH_KEYS}, lead.tolist(),
+                                    self.tokenizer.pad_token_id)
         return device_batch(np_batch, self.device)
+
+    def _save(self, step: int, wait: bool = False) -> None:
+        """Every rank takes part in gathering the state; the main process
+        writes it."""
+        sd = self.state.state_dict()
+        if self.main:
+            self.ckpt.save(step, _Saved(sd), wait=wait)
 
     def fit(self, max_steps: Optional[int] = None,
             profile_steps: Optional[Tuple[int, int]] = None) -> Dict[str, float]:
@@ -109,9 +140,11 @@ class Trainer:
         steps start..stop (inclusive) run under torch.profiler, kept as
         `self.profiler`, with `self.profile_wall_s` their wall time."""
         exp, tcfg = self.exp, self.tcfg
+        shard_index, shard_count = data_shard(self.mesh)
         dataset = OfflineLatentDataset(
             exp.data.meta_path, self.tokenizer, latent_kind=exp.data.latent_kind,
-            seed=tcfg.seed, max_length=exp.data.max_length)
+            seed=tcfg.seed, max_length=exp.data.max_length, shard_index=shard_index,
+            shard_count=shard_count)
         loader = PrefetchLoader(
             dataset, self.tokenizer.pad_token_id,
             max_token_length=exp.data.max_token_length, batch_size=exp.data.batch_size,
@@ -152,22 +185,24 @@ class Trainer:
                         m["steps_per_s"] = tcfg.log_interval / max(dt, 1e-9)
                         last_metrics = m
                         self.history.append({"step": step, **m})
-                        self.metrics.log(step, m)
-                        line = (f"{time.ctime()}: Epoch:{epoch}, Step:{step}, "
-                                f"batch_size:{np_batch['input_ids'].shape[0]}, "
-                                f"total_loss:{m['total_loss']:.5f}, "
-                                f"audio_loss:{m['audio_loss']:.5f}, "
-                                f"end_loss:{m['end_loss']:.5f}")
-                        print(line)
-                        self.metrics.text_log(line)
+                        if self.main:
+                            self.metrics.log(step, m)
+                            line = (f"{time.ctime()}: Epoch:{epoch}, Step:{step}, "
+                                    f"batch_size:{np_batch['input_ids'].shape[0]}, "
+                                    f"total_loss:{m['total_loss']:.5f}, "
+                                    f"audio_loss:{m['audio_loss']:.5f}, "
+                                    f"end_loss:{m['end_loss']:.5f}")
+                            print(line)
+                            self.metrics.text_log(line)
                         if self.eval_hook is not None:
                             self.eval_hook(self, step, np_batch)
 
                     if step % tcfg.save_interval == 0:
-                        self.ckpt.save(step, self.state)
+                        self._save(step)
 
                     if max_steps is not None and step >= max_steps:
-                        self.ckpt.save(step, self.state, wait=True)
+                        self._save(step, wait=True)
+                        multihost.barrier()  # the checkpoint is on disk for every rank
                         return last_metrics
                 epoch += 1
         finally:
@@ -192,3 +227,13 @@ class Trainer:
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+
+class _Saved:
+    """A gathered state dict in the shape CheckpointManager.save takes."""
+
+    def __init__(self, sd: dict):
+        self.sd = sd
+
+    def state_dict(self) -> dict:
+        return self.sd

@@ -21,7 +21,8 @@ in bf16, the continuous batcher, the tiny Oobleck and mel-VAE codecs in f32 (TF3
 off; no kernel of the port: cuDNN convs), and `cfg_generate` v1/v2 of the tiny f32
 int8 model (K1-K3 in both branches); K4 raising under autograd, and a bf16 sigma codec's
 generator step (0 K4 launches, nonzero encoder gradients) beside its encode under no_grad
-(K4 in every block). Needs an NVIDIA GPU and nvcc; skipped elsewhere. On
+(K4 in every block); tensor-parallel shard shapes (parallel/tp_probe.py) at
+tp 2 and 4 on a reduced width. Needs an NVIDIA GPU and nvcc; skipped elsewhere. On
 the card (this file imports no JAX, so no conftest):
 
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_cuda.py
@@ -865,3 +866,23 @@ def test_sigma_bf16_generator_step_on_card(g):
     with torch.no_grad():
         sigmavae.encode(st.gen_params, cfg, wav)
     assert _build.launches().get(k4.NAME, 0) == len(cfg.strides) * cfg.blocks_per_stage
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_tp_shard_shapes(g, tp):
+    """parallel/tp_probe.check at a reduced width (hidden 512, 8 query / 4
+    KV heads of 64, FFN 1024): each tp rank's decode halves through K1-K3
+    (int8, separate and fused) and its training attention through K5-K7,
+    every kernel against its plain version, the launches exact, and the
+    partials summed over the ranks against the unsharded layer (2e-2 of
+    the largest magnitude; chip_smoke phase 10(b) runs full width)."""
+    import dataclasses
+
+    from kalle_tpu_torch.core.config import LlamaConfig
+    from kalle_tpu_torch.parallel import tp_probe
+
+    cfg = dataclasses.replace(LlamaConfig(hidden_size=512, intermediate_size=1024, num_heads=8,
+                                          num_kv_heads=4, head_dim=64, num_layers=1),
+                              dtype="bfloat16")
+    errs = tp_probe.check(cfg, tp, batch=8, cache_len=256, train_batch=2, train_t=256, g=g)
+    assert max(errs.values()) <= tp_probe.TOL

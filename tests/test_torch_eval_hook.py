@@ -80,8 +80,8 @@ def _trainers(models, tmp_path):
     _, (jcfg, jp, _), (cfg, tp, _) = models
     exp = types.SimpleNamespace(exp_dir=str(tmp_path), project_name="p")
     jtr = types.SimpleNamespace(cfg=jcfg, exp=exp, state=types.SimpleNamespace(params=jp))
-    tr = types.SimpleNamespace(cfg=cfg, exp=exp, state=types.SimpleNamespace(params=tp),
-                               device=torch.device("cpu"))
+    tr = types.SimpleNamespace(cfg=cfg, exp=exp, main=True, device=torch.device("cpu"),
+                               state=types.SimpleNamespace(params=tp, layout=None))
     return jtr, tr
 
 

@@ -1,12 +1,14 @@
-"""The port stands alone: no module of kalle_tpu_torch, and not
-chip_smoke.py, imports jax or the kalle_tpu package (AST scan)."""
+"""The port stands alone: no module of kalle_tpu_torch, and neither
+chip_smoke.py nor ab_decode.py, imports jax or the kalle_tpu package (AST
+scan)."""
 import ast
 from pathlib import Path
 
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FILES = sorted((ROOT / "kalle_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = sorted((ROOT / "kalle_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                                             ROOT / "ab_decode.py"]
 FORBIDDEN = ("jax", "jaxlib", "kalle_tpu")
 
 
@@ -29,6 +31,9 @@ def test_no_jax_or_kalle_tpu_import(path):
 
 
 def test_scan_sees_the_package():
+    rel = {str(p.relative_to(ROOT)) for p in FILES}
+    assert {f"kalle_tpu_torch/parallel/{m}.py" for m in (
+        "mesh", "collectives", "multihost", "pipeline", "pipeline_1f1b", "dryrun")} <= rel
     names = {p.name for p in FILES}
     assert {"llama.py", "generate.py", "sigmavae.py", "chip_smoke.py", "flash_attention.py",
             "trainer.py", "datasets.py", "checkpoint.py", "serve_loop.py", "service.py",
@@ -37,4 +42,4 @@ def test_scan_sees_the_package():
             "cfg.py", "streaming.py", "online.py", "mel.py", "alias_free.py",
             "codec_trainer.py", "discriminators.py", "codec_losses.py", "flow_kl.py",
             "synth_speech.py", "ctc_asr.py", "speaker_embedder.py", "wer.py", "harness.py",
-            "codec_demo.py"} <= names
+            "codec_demo.py", "ab_decode.py"} <= names

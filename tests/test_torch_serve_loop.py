@@ -6,6 +6,7 @@ int8-KV batcher, refill of freed rows, per-row early stop, the sigma head
 and streamed chunks. Tolerance rtol 2e-3 / atol 2e-4, as there; frame
 counts and steps waited exactly."""
 import dataclasses
+import types
 
 import jax
 import numpy as np
@@ -209,8 +210,11 @@ def test_sampling_is_seeded(setup):
 
 def test_what_waits_raises(setup):
     _, _, tcfg, tp, prompts = setup
-    with pytest.raises(NotImplementedError):
-        ContinuousBatcher(tp, tcfg, mesh=object(), device="cpu", **KW)
+    # a mesh serves (tests/test_torch_serve_tp.py); its dp must divide the batch
+    dp2 = types.SimpleNamespace(size=lambda axis: 2 if axis == "dp" else 1,
+                                rank=lambda axis: 0, device=torch.device("cpu"))
+    with pytest.raises(ValueError, match="dp=2"):
+        ContinuousBatcher(tp, tcfg, mesh=dp2, device="cpu", **dict(KW, batch_size=3))
     # the fused decode layout no longer waits: it serves (tests/test_torch_quant_fused.py)
     ContinuousBatcher(fuse_decode_params(tp), tcfg, device="cpu", **KW)
     with pytest.raises(ValueError):

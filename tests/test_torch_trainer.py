@@ -156,7 +156,8 @@ batch_generator: {{use_dynamic: false, batch_size: 2}}
 def test_trainer_refuses_a_mesh(tmp_path):
     exp = config.ExperimentConfig(exp_dir=str(tmp_path), model=config.LlasaConfig.tiny(),
                                   train=config.TrainConfig(tp=2))
-    with pytest.raises(NotImplementedError, match="one device"):
+    # no fallback: a mesh without a process group raises
+    with pytest.raises(RuntimeError, match="process group"):
         Trainer(exp, tokens.build_tokenizer(), device="cpu")
 
 
