@@ -62,7 +62,7 @@ def decode_readings(cs) -> dict:
     from kalle_tpu_torch.infer.generate import generate
     from kalle_tpu_torch.infer.serve_loop import ContinuousBatcher
 
-    cfg = cs.flagship()
+    cfg = cs.flagship_cfg()
     g = torch.Generator(device="cuda").manual_seed(0)
     params = cs.flagship_int8(g)
     ids = torch.randint(0, 128255, (32, 32), generator=g, device="cuda")

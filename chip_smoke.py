@@ -15,7 +15,7 @@ Phases (any failure exits nonzero and prints no result):
      shape: the 1B Llama-3.2-shape Llasa (random weights from a seeded
      torch.Generator, bf16, int8 layer weights, sigma head, 64-d latents),
      batch 32, 32 text ids, 128 frames, bf16 SigmaVAE decode; the early-stop
-     arm; then 3 timed iterations with every kernel's launch count read and
+     arm; then 2 timed iterations with every kernel's launch count read and
      checked, one profiled run (device time by kernel, busy share), and a
      small-input check of the card's path against the port's plain CPU path;
   4. train the full-width model (16 layers, hidden 2048, f32 master weights,
@@ -145,6 +145,34 @@ Phases (any failure exits nonzero and prints no result):
      32/tp heads, every kernel against its plain version (phase 2's bf16
      tolerances), the launches exact, and the partials summed over the
      ranks against the unsharded layer (2e-2 of the largest magnitude).
+ 11. the tools (kalle_tpu_torch/tools), each step's launch counts read and
+     checked: (a) latency_bench at full width (the flagship in bf16, the
+     bf16 SigmaVAE): TTFA p50 / p95 at batch 1 and 8 (chunks of 8 frames,
+     then the codec) and RTF with the codec over 128 frames; --poisson at
+     batch 8, 32 requests at 2 and 4 req/s (TTFA and end-to-end p50 /
+     p95); --interleave at batch 1; (b) http_bench: 16 requests at 2
+     req/s, 64 frames, chunks of 8, no client error and every body the
+     header and (64 - 1) * 3200 * 2 PCM bytes; (c) `python -m
+     kalle_tpu_torch.tools.run_experiment` in its own process at the JAX
+     tiny WER run's arguments (--tiny --steps 1500 --rows 6 --seconds 0.5,
+     the WER arm on), its nine gates printed beside that run's: the six
+     that hold the machinery must pass (loss drop, latent gate, checkpoint
+     round trip, wavs written, copysyn WER, speaker margin), the three that
+     grade what the tiny LM learned (prompt clone, end detection,
+     generated WER) are reported; K1 once a layer a step of generate's
+     loop and K5-K7 once a layer a training step, exactly; then a witness
+     on the chain's own trained LM and rows, the card against the CPU: the
+     loss and gradients through K5-K7, 32 greedy frames through K1, the
+     end-detection arm trained from one init on both, and the latent gate
+     decoded on the CPU; (d) serve_batch in its own process, a
+     tiny int8 model, 4 rows at batch 2, -m 8: each wav 7 frames of the
+     tiny random codec (hop 8), written in completion order; (e) decode_microbench --int8 at batch 32
+     (weights, step, step_nokv, gen), serve_profile at batch 8, 16 and 32
+     (int8) and train_microbench at b8 x t512 with flash and remat none,
+     full and dots (ms a step, MFU, peak memory); (f) the native host
+     library: align_tokens against the Python alignment on 200 seeded
+     pairs and load_npy_batch of 64 phase-4-sized latent files against
+     np.load, with seconds.
 
 Phase 1 fails if a bf16 instance of K1, K3 or K4 (or K6/K7 at hd 64) spills.
 Phase 2 holds K3 at M 8, 32 and 72 (1e-2 relative) and K4 at the five
@@ -177,9 +205,9 @@ three launches, both reruns bit-identical, K2 beside `torch.matmul`. Launch coun
 phase 3's run, K4 from phase 3's and phase 6's counted runs, K5-K7 from
 phase 4's, K1's sideband from phase 5's batch-32 run, each plus phase 7's
 counted runs and phase 8's ((a)-(d) for K1-K3, (e) for K5-K7), phase 9's
-scoring run (K1-K4) and phase 10(a)'s mesh runs (K1's sideband, K2, K3,
-K5-K7); the fused layout's K2 and K3 rows from phase 7's fused generate
-runs.
+scoring run (K1-K4), phase 10(a)'s mesh runs (K1's sideband, K2, K3,
+K5-K7) and phase 11's counted runs (every kernel); the fused layout's K2
+and K3 rows from phase 7's fused generate runs.
 
 Prints a `kernels` JSON line, the card line, and as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
@@ -204,10 +232,12 @@ import urllib.request
 import numpy as np
 import torch
 
+from kalle_tpu_torch.core.config import flagship_cfg
+
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory
 BF16_FLOP_PER_S = 989e12     # H100 SXM dense bf16 tensor cores
 BATCH, TEXT_LEN, MAX_FRAMES, LATENT_HZ = 32, 32, 128, 7.5
-ITERS = 3
+ITERS = 2  # timed runs: phase 3's text -> wav, phase 6's encode
 # phase 4: batch rows, bucket length, microbatches a step, optimizer steps
 TRAIN_B, TRAIN_T, TRAIN_A, TRAIN_STEPS = 8, 512, 2, 10
 # phase 5: requests, frames a request, the batcher's prompt buckets and its
@@ -1101,20 +1131,13 @@ def phase_kernels():
 
 # --------------------------------------------------------------- phase 3 ----
 
-def flagship():
-    from kalle_tpu_torch.core.config import LlamaConfig, LlasaConfig
-
-    llama = dataclasses.replace(LlamaConfig(), dtype="bfloat16", param_dtype="bfloat16")
-    return LlasaConfig(llama=llama, latent_dim=64, audio_proj_dim=2048, head_variant="sigma")
-
-
 def flagship_int8(g):
     """The flagship's params in bf16 with int8 layer weights, from `g`."""
     from kalle_tpu_torch.bridge import tree_map
     from kalle_tpu_torch.models.lm import llasa
     from kalle_tpu_torch.ops.quant import quantize_llama_params
 
-    params = llasa.init_params(flagship(), g, "cuda")
+    params = llasa.init_params(flagship_cfg(), g, "cuda")
     return quantize_llama_params(tree_map(lambda t: t.to(torch.bfloat16), params))
 
 
@@ -1125,7 +1148,7 @@ def phase_slice(card: str):
     from kalle_tpu_torch.ops.kernels import _build
 
     log("# phase 3: text -> 24 kHz wav, flagship width, batch 32")
-    cfg = flagship()
+    cfg = flagship_cfg()
     g = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
     params = flagship_int8(g)
@@ -1430,7 +1453,7 @@ def phase_serve(card: str):
 
     log(f"# phase 5: continuous-batching serving at full width, {SERVE_REQS} requests, "
         f"{SERVE_FRAMES} frames each, all arriving at t=0")
-    cfg = flagship()
+    cfg = flagship_cfg()
     params = flagship_int8(torch.Generator(device="cuda").manual_seed(0))
     tok = build_tokenizer()
     prompts = [np.asarray(build_prompt_ids(tok, t))
@@ -1577,7 +1600,7 @@ def serve_cross_check(params_int8, prompts):
                       latent_dim=64, audio_proj_dim=2048, head_variant="sigma")
     f32_params = llasa.init_params(f32, torch.Generator(device="cuda").manual_seed(0), "cuda")
     failed = []
-    for what, cfg, params in (("bf16 int8", flagship(), params_int8),
+    for what, cfg, params in (("bf16 int8", flagship_cfg(), params_int8),
                               ("f32", f32, f32_params)):
         got, cache_len = batched(cfg, params)
         ref = generated(cfg, params, cache_len)
@@ -1622,7 +1645,7 @@ def serve_http_check(params, tok, card: str):
     n_clients = 8
     codec = Codec.random_init("sigma", torch.Generator(device="cuda").manual_seed(1),
                               "cuda").astype(torch.bfloat16)
-    stream = make_stream_fn(params, flagship(), tok, codec, chunk_frames=25,
+    stream = make_stream_fn(params, flagship_cfg(), tok, codec, chunk_frames=25,
                             max_frames=SERVE_FRAMES, batch_size=8)
     srv = serve_http(stream, sample_rate=codec.sample_rate, host="127.0.0.1", port=0)
     server = threading.Thread(target=srv.serve_forever, daemon=True)
@@ -1710,7 +1733,7 @@ def phase_infer(card: str):
 
     log(f"# phase 6: InferTools at full width: infer_jsonl of {INFER_ROWS} rows, "
         f"{INFER_FRAMES} frames, a {PROMPT_S} s voice prompt")
-    cfg = flagship()
+    cfg = flagship_cfg()
     L = cfg.llama.num_layers
     params = flagship_int8(torch.Generator(device="cuda").manual_seed(0))  # phase 3's weights
     codec = Codec.random_init("sigma", torch.Generator(device="cuda").manual_seed(6),
@@ -2171,7 +2194,7 @@ def closure_fused(card: str) -> dict:
     from kalle_tpu_torch.ops.kernels.qmm import fused_mlp, qmm
     from kalle_tpu_torch.ops.quant import fuse_decode_params, quantize_llama_params
 
-    cfg = flagship()
+    cfg = flagship_cfg()
     L = cfg.llama.num_layers
     params = flagship_int8(torch.Generator(device="cuda").manual_seed(0))
     fused = fuse_decode_params(params)
@@ -2295,7 +2318,7 @@ def closure_int4(card: str) -> None:
     from kalle_tpu_torch.ops.kernels import _build
     from kalle_tpu_torch.ops.quant import quantize_llama_params
 
-    cfg = flagship()
+    cfg = flagship_cfg()
     L = cfg.llama.num_layers
     g = torch.Generator(device="cuda").manual_seed(0)
     int4 = quantize_llama_params(llasa.init_params(cfg, g, "cuda"), bits=4, group=128)
@@ -2414,8 +2437,8 @@ def p8_codec(card: str, kind: str, backbone: dict, texts: list, g, dev="cuda",
     from kalle_tpu_torch.models.codecs import melvae
 
     stable = kind == "stableaudio"
-    cfg = lm_cfg or (dataclasses.replace(flagship(), head_variant="stableaudio") if stable else
-                     dataclasses.replace(flagship(), latent_dim=512, head_variant="melvae"))
+    cfg = lm_cfg or (dataclasses.replace(flagship_cfg(), head_variant="stableaudio") if stable else
+                     dataclasses.replace(flagship_cfg(), latent_dim=512, head_variant="melvae"))
     params = with_heads(backbone, cfg, g, dev)
     codec = Codec.random_init(kind, g, dev, **({"cfg": codec_cfg} if codec_cfg else {}))
     if not stable:
@@ -2547,7 +2570,7 @@ def p8_stream(card: str, backbone: dict, g, dev="cuda", lm_cfg=None, codec_cfg=N
     from kalle_tpu_torch.models.lm.variants import speaker_embedding
     from kalle_tpu_torch.ops.mel import mel_spectrogram, modify_vector
 
-    cfg = lm_cfg or dataclasses.replace(flagship(), latent_dim=1024, head_variant="melvae")
+    cfg = lm_cfg or dataclasses.replace(flagship_cfg(), latent_dim=1024, head_variant="melvae")
     ecapa_cfg = ecapa_cfg or EcapaConfig()
     params = with_heads(backbone, cfg, g, dev, ecapa_cfg=ecapa_cfg)
     codec = Codec.random_init("melvae", g, dev,
@@ -3142,7 +3165,7 @@ def p9_eval(card: str, root: str) -> dict:
     log(f"  speaker margin (held-out renders): same-speaker {pos:.4f} cross-speaker {neg:.4f}")
 
     # a fresh infer_jsonl at phase 6's shape (phase 6's directory is gone)
-    lm = flagship()
+    lm = flagship_cfg()
     L = lm.llama.num_layers
     lm_params = flagship_int8(torch.Generator(device="cuda").manual_seed(0))
     codec = Codec.random_init("sigma", torch.Generator(device="cuda").manual_seed(6),
@@ -3289,7 +3312,7 @@ def p10_serve(params: dict, prompts: list, mesh=None):
     from kalle_tpu_torch.infer.serve_loop import ContinuousBatcher
     from kalle_tpu_torch.ops.kernels import _build
 
-    cfg = flagship()
+    cfg = flagship_cfg()
     cb = ContinuousBatcher(params, cfg, batch_size=P10_B, max_frames=P10_FRAMES,
                            prompt_buckets=SERVE_BUCKETS, greedy=True, mesh=mesh)
     torch.cuda.synchronize()
@@ -3381,9 +3404,522 @@ def phase_parallel(card: str) -> dict:
         f"{BATCH}, cache {SERVE_CACHE}; training attention at batch {TRAIN_B} x {TRAIN_T}")
     g = torch.Generator(device="cuda").manual_seed(10)
     for tp in P10_TP:
-        tp_probe.check(flagship().llama, tp, batch=BATCH, cache_len=SERVE_CACHE,
+        tp_probe.check(flagship_cfg().llama, tp, batch=BATCH, cache_len=SERVE_CACHE,
                        train_batch=TRAIN_B, train_t=TRAIN_T, g=g, log=log)
     log(f"phase 10 s {time.perf_counter() - t0:.1f}")
+    return counts
+
+
+# -------------------------------------------------------------- phase 11 ----
+
+# (a) TTFA (batch, timed chunk calls), open-loop rates and requests; (b) the
+# HTTP bench; (c) the JAX tiny WER run's arguments (experiments/
+# experiment_tiny_wer.json); (e) the microbenches; (f) the native library
+P11_TTFA = ((1, 10), (8, 6))
+P11_RATES, P11_POISSON_REQS, P11_CHUNK = "2,4", 32, 8
+P11_HTTP_REQS, P11_HTTP_RATE, P11_HTTP_FRAMES = 16, 2, 64
+P11_CHAIN = ["--tiny", "--steps", "1500", "--rows", "6", "--seconds", "0.5"]
+P11_CHAIN_MAX_FRAMES = 208  # the tool's default: 0.5 s at 8 kHz, hop 20, + 8
+JAX_TINY_RUN = {"loss_drop": 0.005980953154769981, "latent_gate": 0.010318594639973581,
+                "prompt_clone": (0.3116759428133567, -0.06077609562780708),
+                "end_detection": 0.8333333333333334, "wer_copysyn": 4.545454545454546,
+                "wer_gen": 27.272727272727273, "speaker_margin": (0.8021905422210693,
+                                                                  0.24299830198287964)}
+P11_TRAIN = ("b8,t512,flash", "b8,t512,flash,remat", "b8,t512,flash,dots")
+P11_NATIVE_PAIRS, P11_NATIVE_FILES = 200, 64
+SIDEBAND = "decode_attention_sideband"
+K_ALL = K1_K4 + (SIDEBAND, "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def p11_check(what: str, got: dict, expect: dict) -> None:
+    """Every kernel's count of one run against what the path implies, exactly
+    (a kernel `expect` leaves out: 0)."""
+    for name in K_ALL:
+        if got.get(name, 0) != expect.get(name, 0):
+            raise AssertionError(f"{what}: {name} launched {got.get(name, 0)} times, the path "
+                                 f"implies {expect.get(name, 0)}")
+    log(f"  {what}: launches " + json.dumps({k: got[k] for k in K_ALL if got.get(k)})
+        + " (as the path implies)")
+
+
+def p11_counted(what: str, fn, expect_fn):
+    """Run fn() with the counts set to 0 just before, check them against
+    expect_fn(fn's result) just after; -> (result, counts)."""
+    from kalle_tpu_torch.ops.kernels import _build
+
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    got = _build.launches()
+    p11_check(what, got, expect_fn(out))
+    return out, got
+
+
+def p11_latency(card: str, counts: dict) -> None:
+    """(a) latency_bench at full width: TTFA at batch 1 and 8, the open-loop
+    rates, the interleave mode at batch 1."""
+    from kalle_tpu_torch.models.codecs.sigmavae import SigmaVAEConfig
+    from kalle_tpu_torch.tools import latency_bench
+
+    L = flagship_cfg().llama.num_layers
+    c = SigmaVAEConfig()
+    blocks = len(c.strides) * c.blocks_per_stage  # each of encoder and decoder
+    for B, iters in P11_TTFA:
+        n_full = max(iters // 2, 1)
+        frames = P11_CHUNK + MAX_FRAMES + iters * P11_CHUNK + n_full * MAX_FRAMES
+        decodes = 2 + iters + n_full
+        lines, got = p11_counted(
+            f"latency_bench batch {B}",
+            lambda: latency_bench.main(["--batch", str(B), "--iters", str(iters),
+                                        "--chunk-frames", str(P11_CHUNK),
+                                        "--max-frames", str(MAX_FRAMES)]),
+            lambda _: {"decode_attention": L * frames, "convnext_block": blocks * decodes})
+        ttfa, rtf = lines
+        log(f"ttfa batch {B} p50_s {ttfa['value']} p95_s {ttfa['p95']} ({iters} calls of "
+            f"{P11_CHUNK} frames + codec) rtf_incl_codec {rtf['value']} ({MAX_FRAMES} frames, "
+            f"{n_full} calls) card {card}")
+        _add(counts, got)
+    lines, got = p11_counted(
+        "latency_bench --poisson",
+        lambda: latency_bench.main(["--poisson", P11_RATES, "--continuous",
+                                    str(P11_POISSON_REQS), "--serve-batch", "8",
+                                    "--chunk-frames", str(P11_CHUNK),
+                                    "--max-frames", str(MAX_FRAMES)]),
+        lambda out: {SIDEBAND: L * sum(x["decode_steps"] for x in out)})
+    for x in lines:
+        if x["p50_ttfa_s"] is None or x["requests"] != P11_POISSON_REQS:
+            raise AssertionError(f"open loop: {x}")
+        log(f"open_loop rate {x['rate_req_s']} req_s batch 8 requests {x['requests']} "
+            f"ttfa_p50_s {x['p50_ttfa_s']} ttfa_p95_s {x['p95_ttfa_s']} e2e_p50_s "
+            f"{x['p50_e2e_s']} e2e_p95_s {x['p95_e2e_s']} wall_s {x['wall_s']} card {card}")
+    _add(counts, got)
+    iters = 6
+    n_full = iters // 2
+    frames = P11_CHUNK + MAX_FRAMES + iters * P11_CHUNK + n_full * MAX_FRAMES
+    lines, got = p11_counted(
+        "latency_bench --interleave",
+        lambda: latency_bench.main(["--interleave", "--batch", "1", "--iters", str(iters),
+                                    "--chunk-frames", str(P11_CHUNK),
+                                    "--max-frames", str(MAX_FRAMES)]),
+        # the delay warm-up's encode, then one decode a call
+        lambda _: {"decode_attention": L * frames,
+                   "convnext_block": blocks * (1 + 2 + iters + n_full)})
+    log(f"interleave batch 1 ttfa_p50_s {lines[0]['value']} p95_s {lines[0]['p95']} "
+        f"rtf_incl_codec {lines[1]['value']} card {card}")
+    _add(counts, got)
+
+
+def p11_http(card: str, counts: dict) -> None:
+    """(b) http_bench at full width: every client's body whole, no error."""
+    from kalle_tpu_torch.models.codecs.sigmavae import SigmaVAEConfig
+    from kalle_tpu_torch.tools import http_bench
+
+    L = flagship_cfg().llama.num_layers
+    c = SigmaVAEConfig()
+    (line,), got = p11_counted(
+        "http_bench",
+        lambda: http_bench.main(["--rates", str(P11_HTTP_RATE), "--requests",
+                                 str(P11_HTTP_REQS), "--max-frames", str(P11_HTTP_FRAMES),
+                                 "--chunk-frames", str(P11_CHUNK), "--serve-batch", "8"]),
+        lambda out: {SIDEBAND: L * out[0]["decode_steps"],
+                     "convnext_block": len(c.strides) * c.blocks_per_stage * out[0]["chunks"]})
+    want = 44 + (P11_HTTP_FRAMES - 1) * c.hop * 2
+    sizes = [None if b is None else len(b) for b in line["bodies"]]
+    if line["errors"] or sizes != [want] * P11_HTTP_REQS:
+        raise AssertionError(f"http_bench: {line['errors']} errors, body bytes {sizes}, "
+                             f"each should be {want}")
+    log(f"http_open_loop rate {line['rate_req_s']} req_s requests {line['requests']} errors 0 "
+        f"ttfa_p50_s {line['p50_ttfa_s']} ttfa_p95_s {line['p95_ttfa_s']} e2e_p50_s "
+        f"{line['p50_e2e_s']} e2e_p95_s {line['p95_e2e_s']} (every body {want} bytes) "
+        f"card {card}")
+    _add(counts, got)
+
+
+def p11_subprocess(what: str, cmd: list, timeout: int) -> list:
+    """cmd in a process of its own from the checkout's root; -> its stdout lines."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                          capture_output=True, text=True, timeout=timeout)
+    if proc.returncode:
+        raise AssertionError(f"{what} exited {proc.returncode}:\n{proc.stdout[-3000:]}\n"
+                             f"{proc.stderr[-3000:]}")
+    log(f"  {what}: wall_s {time.perf_counter() - t0:.1f} (process start included)")
+    return proc.stdout.splitlines()
+
+
+# the chain's gates that hold its machinery: training, the checkpoint, the
+# writes, the codec channel's transcription and the trained embedder; the
+# other three grade what the tiny LM learned from one draw of the frozen
+# codec and its data, and pass or fail with that draw on the card and on
+# the CPU alike (PERF.md §6: 1 in 4 draws passes all nine at these
+# arguments on either), so they are printed, and the witness holds the
+# card's arithmetic to the CPU's on the chain's own LM
+P11_MECHANICAL = ("loss_drop", "latent_gate", "checkpoint_roundtrip", "all_wavs_written",
+                  "wer_copysyn", "speaker_margin")
+P11_LEARNED = ("prompt_clone", "end_detection", "wer_gen")
+P11_WITNESS_FRAMES, P11_WITNESS_HELD, P11_WITNESS_END_STEPS = 32, 8, 150
+
+
+def p11_chain_witness(root: str, cfg_path: str, steps: int, max_frames: int) -> dict:
+    """The card against the CPU on the chain's own trained LM and rows,
+    which tells a fault of the card's path from the chain's random draws
+    (the card's generators draw other numbers than the CPU's): (a) the
+    restored LM's loss and gradients on the first two rows at the
+    trainer's bucket, one fixed noise draw, K5-K7 on the card; (b)
+    P11_WITNESS_FRAMES greedy frames of every row, K1 on the card, the
+    first P11_WITNESS_HELD held; (c) the
+    end-detection arm's LM from one CPU-drawn init, trained on the card
+    (K5-K7) and on the CPU, its final loss and its stop frames; (d) the
+    latent gate of the card-trained LM decoded on the CPU. (a)-(c) must
+    agree within their limits. -> the numbers."""
+    from kalle_tpu_torch.bridge import tree_leaves, tree_map
+    from kalle_tpu_torch.core.checkpoint import CheckpointManager
+    from kalle_tpu_torch.core.config import (LlamaConfig, LlasaConfig, TrainConfig,
+                                             load_experiment_config)
+    from kalle_tpu_torch.data.collate import Item, collate
+    from kalle_tpu_torch.data.tokens import build_prompt_ids, build_tokenizer
+    from kalle_tpu_torch.infer.generate import generate
+    from kalle_tpu_torch.models.lm import llasa
+    from kalle_tpu_torch.ops.kernels import _build
+    from kalle_tpu_torch.tools import run_experiment as rx
+    from kalle_tpu_torch.train.step import loss_fn, make_train_state, train_step
+    from kalle_tpu_torch.train.trainer import device_batch
+
+    exp, _ = rx.tiny_experiment(load_experiment_config(cfg_path), steps)
+    exp = dataclasses.replace(exp, exp_dir=root)
+    cfg, L = exp.model, exp.model.llama.num_layers
+    with open(os.path.join(root, exp.project_name, "data", "meta.jsonl")) as f:
+        rows = [json.loads(ln) for ln in f]
+    tok = build_tokenizer(exp.tokenizer_path or None)
+    template = make_train_state(llasa.init_params(cfg, torch.Generator().manual_seed(0), "cpu"),
+                                exp.train)
+    restored, _ = CheckpointManager(os.path.join(exp.output_dir, "torch")).restore(template)
+    params = {"cuda": tree_map(lambda t: t.detach().cuda(), restored.params),
+              "cpu": tree_map(lambda t: t.detach().cpu(), restored.params)}
+    lats = [rx._gt_latents(r).astype(np.float32) for r in rows]
+    ids = [np.asarray(build_prompt_ids(tok, r["caption"]), np.int32) for r in rows]
+    res: dict = {}
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / (float(b.abs().max()) + 1e-30)
+
+    # (a) loss and gradients
+    nb = collate([Item(input_ids=i, audio_latents=x, audio_distribution=x.copy())
+                  for i, x in zip(ids[:2], lats[:2])], pad_token_id=tok.pad_token_id,
+                 buckets=exp.data.length_buckets)
+    noise = np.random.default_rng(0).standard_normal(nb["audio_latents"].shape
+                                                    ).astype(np.float32)
+    got = {}
+    for dev in ("cuda", "cpu"):
+        p = tree_map(lambda t: t.clone().requires_grad_(True), params[dev])
+        k5 = _build.launches().get("flash_fwd", 0)
+        total, m = loss_fn(p, cfg, exp.train, device_batch(nb, dev),
+                           latent_noise=torch.from_numpy(noise).to(dev))
+        total.backward()
+        got[dev] = (float(m["audio_loss"].detach()), [t.grad.cpu() for t in tree_leaves(p)],
+                    _build.launches().get("flash_fwd", 0) - k5)
+    res["loss"] = (got["cuda"][0], got["cpu"][0])
+    res["grad_rel"] = max(rel(a, b) for a, b in zip(got["cuda"][1], got["cpu"][1]))
+    log(f"  witness (a): loss card {res['loss'][0]:.7g} CPU {res['loss'][1]:.7g}, worst "
+        f"gradient {res['grad_rel']:.3g} of its largest entry")
+    if got["cuda"][2] != L or abs(res["loss"][0] - res["loss"][1]) > 1e-5 * res["loss"][1] \
+            or not res["grad_rel"] <= 1e-4:
+        raise AssertionError(f"the chain's LM, card (K5 {got['cuda'][2]}) vs CPU: loss "
+                             f"{res['loss']}, worst gradient {res['grad_rel']:.3g} of its "
+                             "largest entry (limits 1e-5, 1e-4)")
+
+    # (b) greedy frames: each frame feeds the next, so rounding grows with
+    # the frames; the first P11_WITNESS_HELD are held to 1e-4
+    diff = torch.zeros(P11_WITNESS_FRAMES)
+    for i in ids:
+        means = []
+        for dev in ("cuda", "cpu"):
+            t = torch.from_numpy(i[None].astype(np.int64)).to(dev)
+            means.append(generate(params[dev], cfg, t, torch.ones_like(t, dtype=torch.int32),
+                                  max_frames=P11_WITNESS_FRAMES, end_kl_threshold=-1.0,
+                                  greedy=True).means.cpu())
+        diff = torch.maximum(diff, (means[0] - means[1]).abs().amax((0, 2)))
+    res["frames_max_abs"] = (float(diff[:P11_WITNESS_HELD].max()), float(diff.max()))
+    log(f"  witness (b): greedy frames, card vs CPU within {res['frames_max_abs'][0]:.3g} over "
+        f"the first {P11_WITNESS_HELD}, {res['frames_max_abs'][1]:.3g} over "
+        f"{P11_WITNESS_FRAMES}")
+    if not res["frames_max_abs"][0] <= 1e-4:
+        raise AssertionError(f"the chain's LM, {P11_WITNESS_HELD} greedy frames: card vs CPU "
+                             f"differ by {res['frames_max_abs'][0]:.3g} (limit 1e-4)")
+
+    # (c) the end-detection arm from one init
+    ecfg = LlasaConfig(llama=LlamaConfig.tiny(vocab_size=300), latent_dim=cfg.latent_dim,
+                       audio_proj_dim=64, head_variant="stableaudio")
+    etcfg = TrainConfig(lr=3e-3, warmup_steps=5, total_steps=P11_WITNESS_END_STEPS,
+                        end_loss_weight=1.0)
+    sub = [x[::max(len(x) // 200, 1)] for x in lats]
+    enb = collate([Item(input_ids=i, audio_latents=x,
+                        audio_distribution=np.concatenate([x, 0.5 * np.ones_like(x)], -1))
+                   for i, x in zip(ids, sub)], pad_token_id=tok.pad_token_id,
+                  buckets=exp.data.length_buckets)
+    init = llasa.init_params(ecfg, torch.Generator().manual_seed(0), "cpu")
+    end = {}
+    for dev in ("cuda", "cpu"):
+        state = make_train_state(tree_map(lambda t: t.clone().to(dev), init), etcfg)
+        batch = device_batch(enb, dev)
+        for _ in range(P11_WITNESS_END_STEPS):
+            m = train_step(state, ecfg, etcfg, batch, seed=1)
+        frames = []
+        for i, x in zip(ids, sub):
+            t = torch.from_numpy(i[None].astype(np.int64)).to(dev)
+            r = generate(state.params, ecfg, t, torch.ones_like(t, dtype=torch.int32),
+                         torch.Generator(device=dev).manual_seed(21),
+                         max_frames=len(x) + 8, greedy=True)
+            frames.append(max(int(r.n_frames[0]) - 1, 0))
+        end[dev] = (float(m["total_loss"]), frames)
+    res["end_loss"] = (end["cuda"][0], end["cpu"][0])
+    res["end_frames"] = (end["cuda"][1], end["cpu"][1])
+    res["end_rows"] = [len(x) for x in sub]
+    log(f"  witness (c): the end arm from one init, {P11_WITNESS_END_STEPS} steps: loss card "
+        f"{res['end_loss'][0]:.7g} CPU {res['end_loss'][1]:.7g}, stop frames "
+        f"{res['end_frames'][0]} / {res['end_frames'][1]} of {res['end_rows']}")
+    if abs(res["end_loss"][0] - res["end_loss"][1]) > 1e-3 * res["end_loss"][1]:
+        raise AssertionError(f"the end arm from one init, card vs CPU: final loss "
+                             f"{res['end_loss']} (limit 1e-3 relative)")
+
+    # (d) the card-trained LM's latent gate, decoded on the CPU
+    res["latent_gate_cpu_decode"] = rx.latent_gate(params["cpu"], cfg, tok, rows, max_frames)
+    return res
+
+
+def p11_chain(card: str, counts: dict) -> None:
+    """(c) the experiment chain on the card in its own process, the WER arm
+    on, at the JAX tiny WER run's arguments: its nine gates beside that
+    run's values (the six mechanical ones must pass), every launch count
+    against the steps the chain reports, and the witness of the card
+    against the CPU on the chain's own LM."""
+    from kalle_tpu_torch.core.config import LlamaConfig, load_experiment_config
+
+    with tempfile.TemporaryDirectory() as root:
+        cfg = os.path.join(root, "sigma_overfit.yaml")
+        src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
+                           "sigma_overfit.yaml")
+        with open(src) as f, open(cfg, "w") as g:  # one loader worker: a fixed batch order
+            g.write(f.read().replace("num_workers: 2", "num_workers: 1"))
+        cmd = [sys.executable, "-m", "kalle_tpu_torch.tools.run_experiment", cfg, *P11_CHAIN,
+               "--exp-dir", root]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                              capture_output=True, text=True, timeout=900)
+        wall = time.perf_counter() - t0
+        path = os.path.join(root, "sigma-overfit-tiny", "experiment.json")
+        if proc.returncode not in (0, 1) or not os.path.exists(path):
+            raise AssertionError(f"run_experiment exited {proc.returncode}:\n"
+                                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        with open(path) as f:
+            res = json.load(f)
+        buckets = load_experiment_config(cfg).data.length_buckets
+        t0 = time.perf_counter()
+        wit = p11_chain_witness(root, cfg, res["steps"], P11_CHAIN_MAX_FRAMES)
+        wit_s = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    got = json.loads(lines[-1].removeprefix("kernel launches "))
+    decode_steps = int(lines[-2].removeprefix("decode steps "))
+    q, t = res["quality"], res["train"]
+    port = {"loss_drop": t["loss_ratio"], "latent_gate": q["latent_rel_mse"],
+            "prompt_clone": (q["prompt_clone_sim"], q["prompt_clone_neg_sim"]),
+            "end_detection": (q["end_detection_acc"], q["end_detection_mae_frames"]),
+            "wer_copysyn": q["wer_copysyn"], "wer_gen": q["wer_gen"],
+            "speaker_margin": (q["speaker_margin_pos"], q["speaker_margin_neg"])}
+    gates = res["gates"]
+    for gate in P11_MECHANICAL + P11_LEARNED:
+        log(f"  gate {gate}: {gates[gate]} port {port.get(gate, '-')} "
+            f"jax_tiny_run {JAX_TINY_RUN.get(gate, '-')}")
+    log(f"  witness (d): the latent gate of the card-trained LM decoded on the CPU "
+        f"{wit['latent_gate_cpu_decode']:.6g} (on the card {q['latent_rel_mse']:.6g}); the "
+        f"witness's wall_s {wit_s:.1f}")
+    if sorted(gates) != sorted(P11_MECHANICAL + P11_LEARNED) or \
+            not all(gates[g] for g in P11_MECHANICAL) or \
+            proc.returncode != (0 if all(gates.values()) else 1) or \
+            not all(np.isfinite(v) for v in (q["prompt_clone_sim"], q["end_detection_acc"],
+                                             q["wer_gen"])):
+        raise AssertionError(f"the chain's gates: {gates}, exit {proc.returncode}")
+    # the tiny f32 LM (remat off): K1's f32 instance once a layer each step
+    # of generate's loop; every bucket a multiple of 128, so K5-K7 once a
+    # layer in every training step; no int8 weight, no bf16 codec block
+    L = LlamaConfig.tiny().num_layers
+    if any(b % 128 for b in buckets):
+        raise AssertionError(f"the chain's buckets {buckets}: not every step runs flash")
+    steps = res["steps"]
+    p11_check("run_experiment", got, {"decode_attention": L * decode_steps,
+                                      "flash_fwd": L * steps, "flash_bwd_dq": L * steps,
+                                      "flash_bwd_dkv": L * steps})
+    learned = sum(gates[g] for g in P11_LEARNED)
+    log(f"chain gates {sum(gates.values())}/9 (mechanical 6/6, learned {learned}/3) steps "
+        f"{steps} rows {res['rows']} decode steps {decode_steps} wall_s {wall:.1f} (process "
+        f"start included) card {card}")
+    _add(counts, got)
+
+
+def p11_serve_batch(card: str, counts: dict) -> None:
+    """(d) serve_batch in its own process: a tiny int8 model, 4 rows at batch 2."""
+    from kalle_tpu_torch.core.checkpoint import save_params_npz
+    from kalle_tpu_torch.core.config import load_experiment_config
+    from kalle_tpu_torch.models.codecs.sigmavae import SigmaVAEConfig
+    from kalle_tpu_torch.models.lm import llasa
+    from kalle_tpu_torch.ops.quant import quantize_llama_params
+    from kalle_tpu_torch.utils.audio import read_wav
+
+    with tempfile.TemporaryDirectory() as root:
+        yaml = os.path.join(root, "tiny.yaml")
+        with open(yaml, "w") as f:
+            f.write(TINY_YAML)
+        cfg = load_experiment_config(yaml).model
+        ckpt = os.path.join(root, "tiny_int8.npz")
+        save_params_npz(ckpt, quantize_llama_params(
+            llasa.init_params(cfg, torch.Generator().manual_seed(0), "cpu")))
+        meta = os.path.join(root, "req.jsonl")
+        with open(meta, "w") as f:
+            f.write("\n".join(json.dumps({"id": f"r{i}", "caption": "tiny row " * (i + 1)})
+                              for i in range(4)))
+        out = os.path.join(root, "out")
+        lines = p11_subprocess("serve_batch (tiny int8, 4 rows, batch 2)", [
+            sys.executable, "-m", "kalle_tpu_torch.tools.serve_batch", "-c", yaml, "-p", ckpt,
+            "-i", meta, "-o", out, "-m", "8", "--batch", "2"], timeout=600)
+        done = [os.path.basename(ln.split("] ", 1)[1].split(" ")[0])
+                for ln in lines if ln.startswith("[")]
+        mtimes = [os.stat(os.path.join(out, n)).st_mtime_ns for n in done]
+        if sorted(done) != sorted(os.listdir(out)) or len(done) != 4 or mtimes != sorted(mtimes):
+            raise AssertionError(f"serve_batch: completions {done}, files {os.listdir(out)}, "
+                                 f"mtimes in completion order {mtimes}")
+        written = done
+        hop = SigmaVAEConfig.tiny().hop  # the tool's random codec for a latent-8 model
+        for name in written:
+            a, sr = read_wav(os.path.join(out, name))
+            if sr != 24000 or a.shape != (1, 7 * hop) or not np.isfinite(a).all():
+                raise AssertionError(f"serve_batch {name}: {sr} Hz {a.shape}")
+        launch = next(ln for ln in lines if ln.startswith("kernel launches "))
+        got, steps = launch.removeprefix("kernel launches ").rsplit(" decode_steps ", 1)
+        got, L = json.loads(got), cfg.llama.num_layers
+        p11_check("serve_batch", got, {SIDEBAND: L * int(steps), "qmm": 4 * L * int(steps),
+                                       "fused_mlp": L * int(steps)})
+        log(f"  serve_batch: wavs in completion order {written}, each 7 x {hop} samples; "
+            f"{json.loads(lines[-1])}")
+        _add(counts, got)
+
+
+def p11_micro(card: str, counts: dict) -> None:
+    """(e) decode_microbench --int8 at batch 32, serve_profile at batch 8, 16
+    and 32 (int8), train_microbench at b8 x t512 with remat none, full, dots."""
+    from kalle_tpu_torch.tools import decode_microbench, serve_profile, train_microbench
+
+    L = flagship_cfg().llama.num_layers
+    per_step = {"weights": {"qmm": 4 * L, "fused_mlp": L},
+                "step": {"decode_attention": L, "qmm": 4 * L, "fused_mlp": L},
+                "step_nokv": {"decode_attention": L, "qmm": 4 * L, "fused_mlp": L}}
+
+    def expect(out):
+        total: dict = {}
+        for x in out:
+            steps = x["runs"] * (x["frames"] if x["variant"] == "gen" else 1)
+            unit = per_step.get(x["variant"], per_step["step"])
+            _add(total, {k: v * steps for k, v in unit.items()})
+        return total
+
+    lines, got = p11_counted("decode_microbench --int8 batch 32",
+                             lambda: decode_microbench.main(["--int8", "--batch", "32",
+                                                             "--steps", "32"]), expect)
+    rows = {x["variant"]: x for x in lines}
+    for x in lines:
+        log(f"decode_micro {x['variant']} batch 32 int8 ms_per_step {x['ms_per_step']} "
+            f"gb_per_s {x['gb_per_s']} bound_ms {x['bound_ms']} timing {x['timing']} "
+            f"card {card}")
+    log(f"  weights-only floor / step: {rows['weights']['ms_per_step'] / rows['step']['ms_per_step']:.3f} "
+        f"(the layer matmuls' share of the whole step's device time)")
+    _add(counts, got)
+    for B in (8, 16, 32):
+        line, got = p11_counted(
+            f"serve_profile batch {B}",
+            lambda: serve_profile.main(["--batch", str(B), "--steps", "64", "--int8"]),
+            lambda out: {SIDEBAND: L * out["calls"], "qmm": 4 * L * out["calls"],
+                         "fused_mlp": L * out["calls"]})
+        log(f"serve_step batch {B} active {line['active_rows']} int8 ms_per_step "
+            f"{line['ms_per_step']} (eager, ragged rows) card {card}")
+        _add(counts, got)
+    torch.cuda.empty_cache()
+    from kalle_tpu_torch.ops.kernels import _build
+
+    for spec in P11_TRAIN:
+        _build.reset_launches()
+        (line,) = train_microbench.main(["--configs", spec, "--iters", "5"])
+        torch.cuda.synchronize()
+        got, steps = _build.launches(), 1 + 5
+        flash = [got.get(k, 0) for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")]
+        # remat full and dots recompute the forward, K5 again, in the backward
+        k5 = (2 if {"remat", "dots"} & set(spec.split(",")) else 1) * L * steps
+        if flash != [k5, L * steps, L * steps] or any(got.get(k, 0)
+                                                      for k in K1_K4 + (SIDEBAND,)):
+            raise AssertionError(f"train_microbench {spec}: launches {got}")
+        log(f"train_micro {spec} ms_per_step {line['ms_per_step']} tokens_per_s "
+            f"{line['tokens_per_s']} mfu {line['mfu']} peak_mem_gb {line['peak_mem_gb']} "
+            f"K5 a step {flash[0] // steps} card {card}")
+        _add(counts, got)
+        torch.cuda.empty_cache()
+
+
+def p11_native(card: str) -> None:
+    """(f) the native host library: the alignment against the Python one,
+    the batch .npy reader against np.load, seconds of each."""
+    from kalle_tpu_torch.eval import wer
+    from kalle_tpu_torch.native import host
+
+    if not host.have_compiler():
+        raise AssertionError("no g++ on the card's host: the native path cannot be the one "
+                             "that runs")
+    t0 = time.perf_counter()
+    host.get_lib()
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    pairs = [([str(x) for x in rng.integers(0, 30, rng.integers(20, 120))],
+              [str(x) for x in rng.integers(0, 30, rng.integers(20, 120))])
+             for _ in range(P11_NATIVE_PAIRS)]
+    t0 = time.perf_counter()
+    native = [wer._align(r, h) for r, h in pairs]
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    python = [wer._align_python(r, h) for r, h in pairs]
+    python_s = time.perf_counter() - t0
+    if native != python:
+        raise AssertionError("align_tokens differs from _align_python")
+    with tempfile.TemporaryDirectory() as root:
+        meta = write_latents(root, P11_NATIVE_FILES)
+        paths = [json.loads(x)["vae"] for x in open(meta)]
+        t0 = time.perf_counter()
+        got = host.load_npy_batch(paths)
+        batch_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ref = [np.load(p) for p in paths]
+        np_s = time.perf_counter() - t0
+    if not all(a.dtype == b.dtype and a.tobytes() == b.tobytes() for a, b in zip(got, ref)):
+        raise AssertionError("load_npy_batch differs from np.load")
+    mb = sum(a.nbytes for a in ref) / 1e6
+    log(f"native build_s {build_s:.2f} align {P11_NATIVE_PAIRS} pairs native_s {native_s:.4f} "
+        f"python_s {python_s:.4f}; load_npy_batch {P11_NATIVE_FILES} files {mb:.1f} MB "
+        f"native_s {batch_s:.4f} np_load_s {np_s:.4f} (warm page cache) card {card}")
+
+
+def phase_tools(card: str) -> dict:
+    """Phase 11: the port's tools at full width (kalle_tpu_torch/tools).
+    Returns the launches of its counted runs."""
+    log("# phase 11: tools — TTFA, open loop, HTTP, the experiment chain, serve_batch, "
+        "microbenches, the native library")
+    t0 = time.perf_counter()
+    counts: dict = {}
+    p11_latency(card, counts)
+    torch.cuda.empty_cache()
+    p11_http(card, counts)
+    torch.cuda.empty_cache()
+    p11_chain(card, counts)
+    p11_serve_batch(card, counts)
+    p11_micro(card, counts)
+    p11_native(card)
+    log(f"phase 11 s {time.perf_counter() - t0:.1f}")
     return counts
 
 
@@ -3395,34 +3931,55 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
+    last = [t0]
+
+    def lap(phase: str) -> None:  # each phase's wall seconds, for the time budget
+        now = time.perf_counter()
+        log(f"{phase} wall_s {now - last[0]:.1f}")
+        last[0] = now
+
     phase_build()
     card = card_line()
+    lap("phase 1")
     rows = phase_kernels()
+    lap("phase 2")
     launches = phase_slice(card)
     phase_reference()
+    lap("phase 3")
     with tempfile.TemporaryDirectory() as root:
         launches.update(phase_train(card, root))
     phase_train_reference()
+    lap("phase 4")
     launches["decode_attention_sideband"] = phase_serve(card)["decode_attention_sideband"]
+    lap("phase 5")
     k4, prompt_z = phase_infer(card)
+    lap("phase 6")
     launches["convnext_block"] += k4
     p7 = phase_port_closure(card, prompt_z)
+    lap("phase 7")
     for name in ("decode_attention", "convnext_block", "flash_fwd", "flash_bwd_dq",
                  "flash_bwd_dkv"):
         launches[name] = launches.get(name, 0) + p7.get(name, 0)
     # the fused layout's rows: K2 and K3's fused mode in phase 7's fused generate runs
     launches["qmm_wqkv"], launches["fused_mlp_gu"] = p7["qmm"], p7["fused_mlp_gu"]
     p8 = phase_codecs(card)
+    lap("phase 8")
     for name in ("decode_attention", "qmm", "fused_mlp", "flash_fwd", "flash_bwd_dq",
                  "flash_bwd_dkv"):
         launches[name] = launches.get(name, 0) + p8.get(name, 0)
     p9 = phase_codec_training(card)
+    lap("phase 9")
     for name in K1_K4:
         launches[name] = launches.get(name, 0) + p9.get(name, 0)
     p10 = phase_parallel(card)
+    lap("phase 10")
     launches["decode_attention_sideband"] += p10.get("decode_attention_sideband", 0)
     for name in ("qmm", "fused_mlp", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         launches[name] = launches.get(name, 0) + p10.get(name, 0)
+    p11 = phase_tools(card)
+    lap("phase 11")
+    for name in K_ALL:
+        launches[name] = launches.get(name, 0) + p11.get(name, 0)
     for r in rows:
         r["launches"] = launches.get(r["name"], 0)
         r["route"] = "cuda"

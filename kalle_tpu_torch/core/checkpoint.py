@@ -114,15 +114,22 @@ class CheckpointManager:
         """Load checkpoint `step` (default: the newest) into
         `state_template` in place (its `load_state_dict`). -> (state,
         step); (template, 0) when there is none."""
-        step = self.latest_step() if step is None else step
-        if step is None:
+        payload, step = self.load(step)
+        if payload is None:
             return state_template, 0
-        # onto the host: params are copied to their device, and the optimizer
-        # moves its moments to theirs and keeps its step counts on the host,
-        # where AdamW wants them
-        payload = torch.load(self._path(step), map_location="cpu", weights_only=True)
         state_template.load_state_dict(payload)
         return state_template, step
+
+    def load(self, step: Optional[int] = None) -> Tuple[Optional[dict], int]:
+        """The saved state dict of checkpoint `step` (default: the newest)
+        on the host, and its step; (None, 0) when there is none."""
+        step = self.latest_step() if step is None else step
+        if step is None:
+            return None, 0
+        # onto the host: `restore` copies params to their device, and the
+        # optimizer moves its moments to theirs and keeps its step counts on
+        # the host, where AdamW wants them
+        return torch.load(self._path(step), map_location="cpu", weights_only=True), step
 
 
 def copy_leaves_(dst_tree: Any, src_tree: Any, what: str) -> None:

@@ -119,6 +119,13 @@ class LlasaConfig:
         )
 
 
+def flagship_cfg(dtype: str = "bfloat16", param_dtype: str = "bfloat16") -> LlasaConfig:
+    """The flagship model (copy of `__graft_entry__._flagship_cfg`): the
+    Llama-3.2-1B backbone, sigma head, 64-d latents, audio_proj 2048."""
+    llama = dataclasses.replace(LlamaConfig(), dtype=dtype, param_dtype=param_dtype)
+    return LlasaConfig(llama=llama, latent_dim=64, audio_proj_dim=2048, head_variant="sigma")
+
+
 @dataclass(frozen=True)
 class TrainConfig:
     """Training hyperparameters (JAX `TrainConfig`). dp/tp/fsdp/pp size the

@@ -1,5 +1,5 @@
 """WER / CER scorer — Kaldi-style alignment and statistics (copy of
-kalle_tpu/eval/wer.py, pure Python).
+kalle_tpu/eval/wer.py).
 
 Behavioral equivalent of tools/compute-wer.py (CLI `--char=1 --v=1 gt asr`):
 char-level tokenization splits CJK characters and keeps Latin words
@@ -23,9 +23,11 @@ Option surface parity with the reference CLI (ref tools/compute-wer.py:298-389):
 Verbose mode also reports per-script cluster WERs (Mandarin/English/...)
 like the reference's `default_cluster` breakdown (ref :253-291,501-514).
 
-The O(n*m) alignment is the pure-Python one; the port has no native
-host library (the JAX package's C++ `align_tokens` gives the same
-alignments).
+The O(n*m) alignment runs in the port's native host library
+(`native/host.align_tokens`, C++ built with g++ at first use), which makes
+the same choices as `_align_python` step for step. The pure-Python
+alignment is taken only when g++ is missing; a failed build or load
+raises. `python -m kalle_tpu_torch.tools.compute_wer` runs `main`.
 """
 from __future__ import annotations
 
@@ -257,7 +259,11 @@ def _align_python(ref: List[str], hyp: List[str]):
 
 
 def _align(ref: List[str], hyp: List[str]):
-    return _align_python(ref, hyp)
+    from ..native import host
+
+    if not host.have_compiler():
+        return _align_python(ref, hyp)
+    return host.align_tokens(ref, hyp)
 
 
 def score_pair(

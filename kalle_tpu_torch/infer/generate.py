@@ -34,6 +34,11 @@ from ..core.config import LlasaConfig, torch_dtype
 from ..models.lm import llama, llasa
 
 
+# decode-loop steps taken in this process, each one forward_with_cache at
+# t=1 (a count of K1's launches is held against it: one a layer a step)
+decode_steps = 0
+
+
 class GenResult(NamedTuple):
     means: torch.Tensor        # (b, max_frames, d)
     log_scales: torch.Tensor   # (b, max_frames, d) (log sigma for the sigma head)
@@ -119,6 +124,7 @@ def generate(
 def _generate(params, cfg: LlasaConfig, input_ids, prompt_mask, generator, max_frames,
               cache_len, end_kl_threshold, prompt_latents, prompt_latents_mask, embed_bias,
               greedy, tp_group, rows, n_kv) -> GenResult:
+    global decode_steps
     lcfg = cfg.llama
     dt = torch_dtype(lcfg.dtype)
     dev = input_ids.device
@@ -193,6 +199,7 @@ def _generate(params, cfg: LlasaConfig, input_ids, prompt_mask, generator, max_f
             params["llama"], lcfg, a_embed, cache, attention_mask=valid,
             positions=pos[:, None], tp=tp_group)
         pos = pos + live.long()
+        decode_steps += 1
 
     return GenResult(means=means, log_scales=logs, samples=samples,
                      n_frames=(steps - 1).clamp_min(0), end_kl=endkl)

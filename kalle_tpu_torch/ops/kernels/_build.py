@@ -53,10 +53,11 @@ def reset_launches() -> None:
         _launches.clear()
 
 
-def count(name: str) -> None:
-    """One launch of the wrapper `name`'s kernel."""
+def count(name: str, n: int = 1) -> None:
+    """n launches of the wrapper `name`'s kernel (a CUDA graph's replays
+    run what one capture recorded)."""
     with _lock:
-        _launches[name] += 1
+        _launches[name] += n
 
 
 def launches() -> Dict[str, int]:

@@ -3,6 +3,11 @@ tensor-core kernel (`tc::decode_mma`) taken out, each timed on the card,
 and K1 beside its plain version and SDPA at the small batches of B4.
 
     python -m kalle_tpu_torch.ops.kernels.decode_probe [--against DIR]
+        [--batches 8,16,32 --caches 256,1024]
+
+This is the port's counterpart of tools/attn_ab.py (the JAX kernel against
+the XLA lowering): `--batches` and `--caches` add attn_ab's batch x cache
+sweep, K1 beside its plain version and SDPA with every slot valid.
 
 Variants (text cuts, built as `qmm_probe` builds its own; the cut
 variants only time, their outputs are not right): the kernel as it is;
@@ -240,10 +245,39 @@ def probe_small_batches(g) -> None:
         torch.cuda.empty_cache()
 
 
+def probe_sweep(g, batches, caches) -> None:
+    """tools/attn_ab.py's sweep: K1, its plain version and SDPA with every
+    slot of the cache valid, for each batch x cache."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for b, c in itertools.product(batches, caches):
+        q, kt, v, _, _ = _cache(g, b, c)
+        mask = torch.ones((b, c), dtype=torch.bool, device="cuda")
+        am = mask[:, None, None, :]
+
+        def timed(fn):
+            layers = itertools.count()
+            return graph_ms(lambda: fn(next(layers) % L)) * 1e3
+
+        k_us = timed(lambda i: decode_attention_cached(q[i], kt, v, i, mask))
+        p_us = timed(lambda i: decode_attention_plain(q[i], kt, v, i, mask))
+        s_us = timed(lambda i: sdpa(q[i][:, :, None], kt[i].transpose(-1, -2), v[i],
+                                    attn_mask=am, enable_gqa=True))
+        print(f"sweep B={b} C={c} (cluster "
+              f"{decode_attention_plan(b, NKV, NQ // NKV, HD, c)['cluster']}) us: kernel "
+              f"{k_us:.2f}; plain {p_us:.2f}; sdpa {s_us:.2f}; bound "
+              f"{bound_ms(mask) * 1e3:.2f}", flush=True)
+        del q, kt, v
+        torch.cuda.empty_cache()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", metavar="DIR",
                     help="also time K1 as the checkout DIR builds it")
+    ap.add_argument("--batches", default="",
+                    help="with --caches: the batch x cache sweep of tools/attn_ab.py, "
+                         "e.g. 8,16,32")
+    ap.add_argument("--caches", default="", help="e.g. 256,1024")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("decode_probe: needs a CUDA card")
@@ -258,6 +292,9 @@ def main() -> None:
     print(f"launch floor (one tiny op) us {graph_ms(lambda: tiny.add_(1)) * 1e3:.2f}")
     probe_parts(g, libs)
     probe_small_batches(g)
+    if args.batches and args.caches:
+        probe_sweep(g, [int(x) for x in args.batches.split(",")],
+                    [int(x) for x in args.caches.split(",")])
 
 
 if __name__ == "__main__":

@@ -3,6 +3,9 @@ kernel taken out, each timed on the card.
 
     python -m kalle_tpu_torch.ops.kernels.qmm_probe [--against DIR]
 
+The port's counterpart of tools/qmm_probe.py (the weight-streaming int8
+matmul and fused MLP timed beside XLA's lowering there).
+
 Variants are text cuts of the source, built with `_build.NVCC_FLAGS` into
 `build/kernels/probe/`; the cut variants only time, their outputs are not
 right. Each call is timed as 64 calls captured in a CUDA graph, one replay

@@ -886,3 +886,53 @@ def test_tp_shard_shapes(g, tp):
                               dtype="bfloat16")
     errs = tp_probe.check(cfg, tp, batch=8, cache_len=256, train_batch=2, train_t=256, g=g)
     assert max(errs.values()) <= tp_probe.TOL
+
+
+def test_native_host_library_at_phase11_sizes(g, tmp_path):
+    """The native alignment and batch .npy reader on the card's host at
+    chip_smoke phase 11(f)'s sizes (200 pairs; 64 latent files of (1, 300..439,
+    64) f32), against the Python alignment and np.load, with seconds."""
+    import time
+
+    import numpy as np
+
+    from kalle_tpu_torch.eval import wer
+    from kalle_tpu_torch.native import host
+
+    assert host.have_compiler(), "the card's host has g++ (nvcc needs it)"
+    host.get_lib()  # the build at first use, outside the timing
+    rng = np.random.default_rng(0)
+    pairs = [([str(x) for x in rng.integers(0, 30, rng.integers(20, 120))],
+              [str(x) for x in rng.integers(0, 30, rng.integers(20, 120))]) for _ in range(200)]
+    t0 = time.perf_counter()
+    native = [host.align_tokens(r, h) for r, h in pairs]
+    t1 = time.perf_counter()
+    assert native == [wer._align_python(r, h) for r, h in pairs]
+    t2 = time.perf_counter()
+    paths = []
+    for i in range(64):
+        p = str(tmp_path / f"lat{i}.npy")
+        np.save(p, rng.normal(size=(1, int(rng.integers(300, 440)), 64)).astype(np.float32))
+        paths.append(p)
+    t3 = time.perf_counter()
+    got = host.load_npy_batch(paths)
+    t4 = time.perf_counter()
+    assert all(a.tobytes() == np.load(p).tobytes() for a, p in zip(got, paths))
+    print(f"native align_s {t1 - t0:.4f} python_s {t2 - t1:.4f} load_npy_batch_s {t4 - t3:.4f}")
+
+
+def test_latency_bench_flagship_batch1(g):
+    """latency_bench at batch 1 on the flagship (bf16, the bf16 SigmaVAE):
+    K1 every decode step of every layer, K4 in every codec block, no K2/K3."""
+    from kalle_tpu_torch.tools import latency_bench
+
+    _build.reset_launches()
+    ttfa, rtf = latency_bench.main(["--batch", "1", "--iters", "2", "--chunk-frames", "8",
+                                    "--max-frames", "16"])
+    torch.cuda.synchronize()
+    got = _build.launches()
+    frames, decodes = 8 + 16 + 2 * 8 + 1 * 16, 2 + 2 + 1
+    assert got.get("decode_attention", 0) == 16 * frames
+    assert got.get("convnext_block", 0) == 10 * decodes
+    assert not got.get("qmm") and not got.get("fused_mlp")
+    assert 0 < ttfa["value"] <= ttfa["p95"] and rtf["value"] > 0

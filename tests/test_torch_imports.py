@@ -43,3 +43,8 @@ def test_scan_sees_the_package():
             "codec_trainer.py", "discriminators.py", "codec_losses.py", "flow_kl.py",
             "synth_speech.py", "ctc_asr.py", "speaker_embedder.py", "wer.py", "harness.py",
             "codec_demo.py", "ab_decode.py"} <= names
+    assert {f"kalle_tpu_torch/tools/{m}.py" for m in (
+        "compute_wer", "run_experiment", "latency_bench", "http_bench", "serve_batch",
+        "convert_ckpt", "sim_test", "asr_test", "decode_microbench", "train_microbench",
+        "serve_profile", "common")} <= rel
+    assert "kalle_tpu_torch/native/host.py" in rel
