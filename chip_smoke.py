@@ -1347,7 +1347,7 @@ def phase_train(card: str, root: str):
         f"peak_mem_gb {peak_gb:.2f} fit_s {fit_s:.1f} card {card}")
     log(f"  K5-K7 launches a step: " + json.dumps(
         {k: v / TRAIN_STEPS for k, v in launches.items()}))
-    report_profile(trainer.profiler, trainer.profile_wall_s, "profiled step")
+    report_profile(trainer.profiler, events_wall_s(trainer.profiler), "profiled step")
 
     # the final checkpoint restores into a fresh trainer (params and AdamW state)
     trainer.state.optimizer.zero_grad(set_to_none=True)
@@ -1367,6 +1367,13 @@ def phase_train(card: str, root: str):
     del again, trainer
     torch.cuda.empty_cache()
     return launches
+
+
+def events_wall_s(prof) -> float:
+    """The seconds from the profile's first event to its last, host and
+    device (a profile opened and closed on a synchronized card)."""
+    ev = prof.events()
+    return (max(e.time_range.end for e in ev) - min(e.time_range.start for e in ev)) / 1e6
 
 
 def report_profile(prof, wall_s: float, what: str) -> None:

@@ -21,6 +21,7 @@ from typing import Callable, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
+from ..utils import trace
 from ..utils.audio import read_wav, resample_linear
 from .collate import DynamicBatchGenerator, Item, collate
 from .data_pool import finite_iter, put_until_stopped
@@ -200,7 +201,8 @@ class MelVAECacheDataset(OfflineLatentDataset):
 class PrefetchLoader:
     """Threaded producer-consumer batch loader: items come from
     `data_pool.finite_iter`, are packed by the token-budget DynamicBatchGenerator,
-    collated to static bucket shapes and queued as numpy batches."""
+    collated to static bucket shapes and queued as numpy batches. The
+    consumer's wait for each batch is the span `train.data_wait`."""
 
     def __init__(self, dataset: OfflineLatentDataset, pad_token_id: int,
                  max_token_length: int = 11000, batch_size: int = 16,
@@ -235,7 +237,8 @@ class PrefetchLoader:
         self._thread = threading.Thread(target=self._produce, daemon=True)
         self._thread.start()
         while True:
-            b = self.q.get()
+            with trace.span("train.data_wait"):
+                b = self.q.get()
             if b is None:
                 break
             yield b

@@ -5,7 +5,10 @@ Prefill runs the left-padded prompts once through the cache; the decode
 loop then emits one latent frame per step for every row, with per-row done
 flags. The JAX package's `lax.while_loop` becomes a Python loop that stops
 once every row is done — reading the flags costs one device-to-host sync a
-step.
+step. Traced (`utils/trace`): `gen.prefill`, and a `gen.step` each loop
+iteration holding its `gen.flag_read` (a loop that stops early ends with a
+step that only reads the flags); each step marks the tracer
+(`trace.mark`) after its read.
 
 Semantics kept from the JAX package:
   * end of speech: KL(frame dist || N(1, e)) / d < threshold, tested after
@@ -32,6 +35,7 @@ import torch
 
 from ..core.config import LlasaConfig, torch_dtype
 from ..models.lm import llama, llasa
+from ..utils import trace
 
 
 # decode-loop steps taken in this process, each one forward_with_cache at
@@ -141,30 +145,31 @@ def _generate(params, cfg: LlasaConfig, input_ids, prompt_mask, generator, max_f
     bias = None if embed_bias is None else embed_bias.to(dt)[:, None, :]
 
     # ---- prefill ----
-    pmask = prompt_mask.bool()
-    embeds = llama.embed_tokens(params["llama"], input_ids, lcfg) * pmask[..., None].to(dt)
-    if prompt_latents is not None:
-        a_embed = llasa.audio_proj(params, prompt_latents, dt)
-        if prompt_latents_mask is None:
-            lmask = torch.ones((b, tl), dtype=torch.bool, device=dev)
-        else:
-            lmask = prompt_latents_mask.bool()
-            a_embed = a_embed * lmask[..., None].to(dt)
-        embeds = torch.cat([embeds, a_embed], dim=1)
-        pmask = torch.cat([pmask, lmask], dim=1)
-    if bias is not None:
-        embeds = embeds + bias
-    t_pre = embeds.shape[1]
-    # left-padded: local position = slot - n_pads
-    n_pads = t_pre - pmask.sum(dim=1)
-    positions = (torch.arange(t_pre, device=dev)[None, :] - n_pads[:, None]).clamp_min(0)
-    cache = llama.KVCache.zeros(lcfg, b, cache_len, device=dev, n_kv=n_kv)
-    valid = torch.zeros((b, cache_len), dtype=torch.bool, device=dev)
-    valid[:, :t_pre] = pmask
-    hidden, cache = llama.forward_with_cache(params["llama"], lcfg, embeds, cache,
-                                             attention_mask=valid, positions=positions,
-                                             tp=tp_group)
-    hidden = hidden[:, -1:, :]
+    with trace.span("gen.prefill"):
+        pmask = prompt_mask.bool()
+        embeds = llama.embed_tokens(params["llama"], input_ids, lcfg) * pmask[..., None].to(dt)
+        if prompt_latents is not None:
+            a_embed = llasa.audio_proj(params, prompt_latents, dt)
+            if prompt_latents_mask is None:
+                lmask = torch.ones((b, tl), dtype=torch.bool, device=dev)
+            else:
+                lmask = prompt_latents_mask.bool()
+                a_embed = a_embed * lmask[..., None].to(dt)
+            embeds = torch.cat([embeds, a_embed], dim=1)
+            pmask = torch.cat([pmask, lmask], dim=1)
+        if bias is not None:
+            embeds = embeds + bias
+        t_pre = embeds.shape[1]
+        # left-padded: local position = slot - n_pads
+        n_pads = t_pre - pmask.sum(dim=1)
+        positions = (torch.arange(t_pre, device=dev)[None, :] - n_pads[:, None]).clamp_min(0)
+        cache = llama.KVCache.zeros(lcfg, b, cache_len, device=dev, n_kv=n_kv)
+        valid = torch.zeros((b, cache_len), dtype=torch.bool, device=dev)
+        valid[:, :t_pre] = pmask
+        hidden, cache = llama.forward_with_cache(params["llama"], lcfg, embeds, cache,
+                                                 attention_mask=valid, positions=positions,
+                                                 tp=tp_group)
+        hidden = hidden[:, -1:, :]
 
     d = cfg.latent_dim
     means = torch.zeros((b, max_frames, d), dtype=dt, device=dev)
@@ -176,30 +181,36 @@ def _generate(params, cfg: LlasaConfig, input_ids, prompt_mask, generator, max_f
     steps = torch.zeros((b,), dtype=torch.int32, device=dev)
 
     for i in range(max_frames):
-        if bool(done.all()):
-            break
-        mean, lg, sample = _head_step(cfg, params, hidden, generator, greedy, rows)
-        kl = llasa.end_kl(cfg, mean, torch.exp(lg.float()))[:, 0]
-        live = ~done
-        keep = live[:, None]
-        means[:, i] = torch.where(keep, mean[:, 0], 0).to(dt)
-        logs[:, i] = torch.where(keep, lg[:, 0], 0).to(dt)
-        samples[:, i] = torch.where(keep, sample[:, 0], 0).to(dt)
-        endkl[:, i] = torch.where(live, kl, 0.0)
-        steps += live.int()
+        # a step's span: its stop-flag read (the host waits for the card),
+        # then the host issuing the step
+        with trace.span("gen.step"):
+            with trace.span("gen.flag_read"):
+                stop = bool(done.all())
+            trace.mark(dev)  # the card is idle: a profiler's clock anchors
+            if stop:
+                break
+            mean, lg, sample = _head_step(cfg, params, hidden, generator, greedy, rows)
+            kl = llasa.end_kl(cfg, mean, torch.exp(lg.float()))[:, 0]
+            live = ~done
+            keep = live[:, None]
+            means[:, i] = torch.where(keep, mean[:, 0], 0).to(dt)
+            logs[:, i] = torch.where(keep, lg[:, 0], 0).to(dt)
+            samples[:, i] = torch.where(keep, sample[:, 0], 0).to(dt)
+            endkl[:, i] = torch.where(live, kl, 0.0)
+            steps += live.int()
 
-        # stop test AFTER emitting; the gate opens once min_frames are out
-        done = done | ((kl < thres) & (i >= cfg.min_frames))
+            # stop test AFTER emitting; the gate opens once min_frames are out
+            done = done | ((kl < thres) & (i >= cfg.min_frames))
 
-        a_embed = llasa.audio_proj(params, sample, dt)
-        if bias is not None:
-            a_embed = a_embed + bias
-        valid[:, cache.length] = live
-        hidden, cache = llama.forward_with_cache(
-            params["llama"], lcfg, a_embed, cache, attention_mask=valid,
-            positions=pos[:, None], tp=tp_group)
-        pos = pos + live.long()
-        decode_steps += 1
+            a_embed = llasa.audio_proj(params, sample, dt)
+            if bias is not None:
+                a_embed = a_embed + bias
+            valid[:, cache.length] = live
+            hidden, cache = llama.forward_with_cache(
+                params["llama"], lcfg, a_embed, cache, attention_mask=valid,
+                positions=pos[:, None], tp=tp_group)
+            pos = pos + live.long()
+            decode_steps += 1
 
     return GenResult(means=means, log_scales=logs, samples=samples,
                      n_frames=(steps - 1).clamp_min(0), end_kl=endkl)

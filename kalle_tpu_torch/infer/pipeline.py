@@ -27,6 +27,7 @@ from ..core.config import LlasaConfig
 from ..data.datasets import load_sigma_latent, load_stableaudio_latent, read_jsonl
 from ..data.tokens import build_prompt_ids
 from ..models.codecs import melvae, oobleck, sigmavae
+from ..utils import trace
 from ..utils.audio import write_wav
 from .generate import generate
 
@@ -74,18 +75,22 @@ class Codec:
 
         flow_reverse (melvae only): the LM predicts FLOW-space latents, so
         the coupling flow is inverted before the decoder. The codec draws
-        nothing: the mel-VAE decodes the latents as they are."""
-        z = torch.as_tensor(latents, device=self.device).to(self.dtype)
-        if self.kind == "sigma":
-            y = sigmavae.decode(self.params, self.cfg, z)
-        elif self.kind == "stableaudio":
-            y = oobleck.decode(self.params, self.cfg, z.transpose(1, 2))
-        else:
-            z = z.transpose(1, 2)
-            if flow_reverse:
-                z = melvae.flow(self.params, self.cfg, z, reverse=True)
-            y = melvae.inference_from_latents(self.params, self.cfg, z, do_sample=False)
-        return y.float().cpu().numpy()
+        nothing: the mel-VAE decodes the latents as they are. Traced:
+        `codec.decode`, with `codec.copy_out` around the host copy."""
+        with trace.span("codec.decode"):
+            z = torch.as_tensor(latents, device=self.device).to(self.dtype)
+            if self.kind == "sigma":
+                y = sigmavae.decode(self.params, self.cfg, z)
+            elif self.kind == "stableaudio":
+                y = oobleck.decode(self.params, self.cfg, z.transpose(1, 2))
+            else:
+                z = z.transpose(1, 2)
+                if flow_reverse:
+                    z = melvae.flow(self.params, self.cfg, z, reverse=True)
+                y = melvae.inference_from_latents(self.params, self.cfg, z, do_sample=False)
+            y = y.float()
+            with trace.span("codec.copy_out"):
+                return y.cpu().numpy()
 
     def encode_audio(self, wav) -> np.ndarray:
         """wav at `sample_rate` -> host float32: sigma takes (B, 1, T) or
@@ -219,32 +224,42 @@ class InferTools:
         packed `batch_size` at a time into left-padded prompt buckets, so a
         batch has one of a few shapes; a short last group repeats its last
         row (discarded). Returns (1, T_i) arrays aligned with `texts`, each
-        trimmed to max(n_frames_i, 1) * samples_per_frame."""
-        ids_list = [build_prompt_ids(self.tokenizer, t) for t in texts]
-        order = sorted(range(len(texts)), key=lambda i: len(ids_list[i]))
-        out: List[Optional[np.ndarray]] = [None] * len(texts)
-        spf = self.codec.samples_per_frame
+        trimmed to max(n_frames_i, 1) * samples_per_frame.
 
-        for g0 in range(0, len(order), batch_size):
-            group = order[g0:g0 + batch_size]
-            max_len = max(len(ids_list[i]) for i in group)
-            bucket = next((bk for bk in prompt_buckets if bk >= max_len), max_len)
-            rows = group + [group[-1]] * (batch_size - len(group))
-            ids = np.zeros((batch_size, bucket), np.int64)
-            mask = np.zeros((batch_size, bucket), np.int32)
-            for r, i in enumerate(rows):
-                n = len(ids_list[i])
-                ids[r, bucket - n:] = ids_list[i]  # LEFT padding
-                mask[r, bucket - n:] = 1
+        Traced (`utils/trace`): `synth.call` around it all, and for each
+        group `synth.pack` (the ids and mask, moved to the device), then
+        `generate`'s and the codec's spans, then `synth.unpack` (n_frames
+        to the host, the row trims)."""
+        with trace.span("synth.call", texts=len(texts)):
+            ids_list = [build_prompt_ids(self.tokenizer, t) for t in texts]
+            order = sorted(range(len(texts)), key=lambda i: len(ids_list[i]))
+            out: List[Optional[np.ndarray]] = [None] * len(texts)
+            spf = self.codec.samples_per_frame
 
-            res = generate(self.params, self.cfg, torch.from_numpy(ids).to(self.device),
-                           torch.from_numpy(mask).to(self.device), self.generator,
-                           max_frames=max_frames)
-            audio = self.codec.decode_latents(self._latents_for_decode(res, slice(0, max_frames)),
-                                              flow_reverse=self.flow_reverse)
-            n_frames = res.n_frames.cpu().numpy()
-            for r, i in enumerate(group):
-                out[i] = audio[r, :, :max(int(n_frames[r]), 1) * spf]
+            for g0 in range(0, len(order), batch_size):
+                group = order[g0:g0 + batch_size]
+                with trace.span("synth.pack"):
+                    max_len = max(len(ids_list[i]) for i in group)
+                    bucket = next((bk for bk in prompt_buckets if bk >= max_len), max_len)
+                    rows = group + [group[-1]] * (batch_size - len(group))
+                    ids = np.zeros((batch_size, bucket), np.int64)
+                    mask = np.zeros((batch_size, bucket), np.int32)
+                    for r, i in enumerate(rows):
+                        n = len(ids_list[i])
+                        ids[r, bucket - n:] = ids_list[i]  # LEFT padding
+                        mask[r, bucket - n:] = 1
+                    ids_t = torch.from_numpy(ids).to(self.device)
+                    mask_t = torch.from_numpy(mask).to(self.device)
+
+                res = generate(self.params, self.cfg, ids_t, mask_t, self.generator,
+                               max_frames=max_frames)
+                audio = self.codec.decode_latents(
+                    self._latents_for_decode(res, slice(0, max_frames)),
+                    flow_reverse=self.flow_reverse)
+                with trace.span("synth.unpack"):
+                    n_frames = res.n_frames.cpu().numpy()
+                    for r, i in enumerate(group):
+                        out[i] = audio[r, :, :max(int(n_frames[r]), 1) * spf]
         return out  # type: ignore[return-value]
 
     # ---- a jsonl test set ----

@@ -15,13 +15,13 @@ Every C entry point returns `cudaGetLastError()`; `check()` raises on any
 code but 0. `count()` adds one launch of a wrapper's kernel: a wrapper
 calls it where it launches its kernel (one launch a call) and nowhere
 else; `launches()` reads the counts and `reset_launches()` clears them.
-Loading and counting share one lock, so the wrappers may be called from
-several threads (the serving decode thread and the HTTP handlers' codec
-decodes).
+The counts are the tracer's counters `kernel.<name>` (`utils/trace.py`),
+which the wrappers may bump from several threads (the serving decode
+thread and the HTTP handlers' codec decodes); loading takes a lock of its
+own.
 """
 from __future__ import annotations
 
-import collections
 import ctypes
 import hashlib
 import os
@@ -34,6 +34,8 @@ from typing import Dict, Iterable, Sequence
 
 import torch
 
+from ...utils import trace
+
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("decode_attention", "qmm", "convnext_block", "flash_attention")
@@ -43,27 +45,23 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 P = ctypes.c_void_p
 I = ctypes.c_int
 
-_launches: collections.Counter = collections.Counter()
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 
 
 def reset_launches() -> None:
-    with _lock:
-        _launches.clear()
+    trace.clear_counters("kernel.")
 
 
 def count(name: str, n: int = 1) -> None:
     """n launches of the wrapper `name`'s kernel (a CUDA graph's replays
     run what one capture recorded)."""
-    with _lock:
-        _launches[name] += n
+    trace.count("kernel." + name, n)
 
 
 def launches() -> Dict[str, int]:
     """A copy of the counts."""
-    with _lock:
-        return dict(_launches)
+    return trace.counters("kernel.")
 
 
 def nvcc() -> str:

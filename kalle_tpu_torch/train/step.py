@@ -7,6 +7,10 @@ microbatch axis (A, B, ...): each microbatch's loss is scaled by 1/A before
 its backward and the gradients sum in the f32 `.grad` buffers, so only one
 microbatch's activations are live at a time and one update follows.
 
+Traced (`utils/trace`): `train.fwd_bwd` for each microbatch (attr
+`micro`), and `train.optim` around zero_grad at the top and around the
+gradients' sync, clip and the AdamW and schedule steps at the end.
+
 Randomness (the sigma head's input noise) comes from a `torch.Generator`
 seeded from (seed, step, microbatch), so a resumed run replays the same
 draws.
@@ -38,6 +42,7 @@ from ..bridge import tree_leaves
 from ..core.config import LlasaConfig, TrainConfig, torch_dtype
 from ..models.lm import llama, llasa
 from ..parallel.mesh import PP_AXIS, shard_leaf, spec_leaves
+from ..utils import trace
 from .optim import clip_by_global_norm_, global_norm, make_optimizer
 
 
@@ -165,39 +170,42 @@ def train_step(state: TrainState, cfg: LlasaConfig, tcfg: TrainConfig,
     layout, of the global batch)."""
     leaves: List[torch.Tensor] = tree_leaves(state.params)
     layout = state.layout
-    state.optimizer.zero_grad(set_to_none=True)
+    with trace.span("train.optim"):
+        state.optimizer.zero_grad(set_to_none=True)
     accum = tcfg.gradient_accumulation_steps
     micro = [{k: v[i] for k, v in batch.items()} for i in range(accum)] if accum > 1 \
         else [batch]
     dev = leaves[0].device
     per_micro = []
     for i, mb in enumerate(micro):
-        gen = step_generator(seed, state.step, i, dev)
-        noise = None
-        if layout is not None and cfg.head_variant == "sigma":
-            noise = layout.global_noise(gen, mb["audio_latents"].shape, dev)
-        loss, m = loss_fn(state.params, cfg, tcfg, mb, generator=gen, latent_noise=noise,
-                          use_flash=use_flash, layout=layout)
-        (loss / accum if accum > 1 else loss).backward()
-        per_micro.append({k: v.detach() for k, v in m.items()})
-    metrics = {k: torch.stack([m[k] for m in per_micro]).mean() for k in per_micro[0]}
-    grads = []
-    for p in leaves:  # a parameter the loss does not reach gets a zero gradient
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
-        grads.append(p.grad)
-    norm_fn = global_norm
-    if layout is not None:
-        metrics = dict(zip(metrics, layout.sum_data(torch.stack(list(metrics.values())))))
-        layout.sync_grads(state.params)
-        norm_fn = layout.global_norm
-    if tcfg.log_grad_norm or tcfg.max_grad_norm:
-        norm = norm_fn(grads)
-        if tcfg.log_grad_norm:
-            metrics["grad_norm"] = norm
-        if tcfg.max_grad_norm:
-            clip_by_global_norm_(grads, tcfg.max_grad_norm, norm)
-    state.optimizer.step()
-    state.scheduler.step()
+        with trace.span("train.fwd_bwd", micro=i):
+            gen = step_generator(seed, state.step, i, dev)
+            noise = None
+            if layout is not None and cfg.head_variant == "sigma":
+                noise = layout.global_noise(gen, mb["audio_latents"].shape, dev)
+            loss, m = loss_fn(state.params, cfg, tcfg, mb, generator=gen, latent_noise=noise,
+                              use_flash=use_flash, layout=layout)
+            (loss / accum if accum > 1 else loss).backward()
+            per_micro.append({k: v.detach() for k, v in m.items()})
+    with trace.span("train.optim"):
+        metrics = {k: torch.stack([m[k] for m in per_micro]).mean() for k in per_micro[0]}
+        grads = []
+        for p in leaves:  # a parameter the loss does not reach gets a zero gradient
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            grads.append(p.grad)
+        norm_fn = global_norm
+        if layout is not None:
+            metrics = dict(zip(metrics, layout.sum_data(torch.stack(list(metrics.values())))))
+            layout.sync_grads(state.params)
+            norm_fn = layout.global_norm
+        if tcfg.log_grad_norm or tcfg.max_grad_norm:
+            norm = norm_fn(grads)
+            if tcfg.log_grad_norm:
+                metrics["grad_norm"] = norm
+            if tcfg.max_grad_norm:
+                clip_by_global_norm_(grads, tcfg.max_grad_norm, norm)
+        state.optimizer.step()
+        state.scheduler.step()
     state.step += 1
     return metrics

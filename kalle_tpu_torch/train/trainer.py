@@ -46,6 +46,7 @@ from ..data.datasets import OfflineLatentDataset, PrefetchLoader
 from ..models.lm import llasa
 from ..parallel import multihost
 from ..parallel.mesh import DP_AXIS, data_shard, make_mesh, param_layout
+from ..utils import trace
 from .metrics import MetricsWriter
 from .step import make_train_state, train_step
 
@@ -93,7 +94,6 @@ class Trainer:
             print(f"resumed from step {self.start_step}")
         self.history: list = []  # the metrics of every log line
         self.profiler = None  # set by fit(profile_steps=...)
-        self.profile_wall_s = 0.0
 
     def _init_params(self) -> dict:
         gen = torch.Generator(device=self.device).manual_seed(self.tcfg.seed)
@@ -138,7 +138,19 @@ class Trainer:
             profile_steps: Optional[Tuple[int, int]] = None) -> Dict[str, float]:
         """Train until `max_steps` (or forever). profile_steps=(start, stop):
         steps start..stop (inclusive) run under torch.profiler, kept as
-        `self.profiler`, with `self.profile_wall_s` their wall time."""
+        `self.profiler`.
+
+        Traced (`utils/trace`): each update's spans share its root
+        `train.update` (attr `update`, the update's number):
+        `train.data_wait` for each batch taken from the loader,
+        `train.stack` (stacking the microbatches and the copy to the
+        device), `train.step` (`train_step`, attrs `update` and the
+        update's `tokens_real` and `tokens_slots`) and, on log steps,
+        `train.log` (the metrics' reads and writes). The counters
+        `train.tokens_real` (caption ids and frames, from the collated
+        masks) and `train.tokens_slots` (the positions the forward computes,
+        the device batch's A x B x T) grow by each update's. The update
+        marks the tracer (`trace.mark`) once its batch is on the card."""
         exp, tcfg = self.exp, self.tcfg
         shard_index, shard_count = data_shard(self.mesh)
         dataset = OfflineLatentDataset(
@@ -150,50 +162,55 @@ class Trainer:
             max_token_length=exp.data.max_token_length, batch_size=exp.data.batch_size,
             use_dynamic=exp.data.use_dynamic, buckets=exp.data.length_buckets,
             num_workers=exp.data.num_workers, prefetch=exp.data.prefetch_size)
-        step, epoch = self.start_step, 0
+        step = self.start_step
         last_metrics: Dict[str, float] = {}
         t_last = time.time()
         accum = tcfg.gradient_accumulation_steps
-        micro_buf: list = []
+        updates = _updates(loader, accum)
         try:
             while True:
-                for np_batch in loader.epoch_iter(epoch):
-                    if not len(np_batch["input_ids"]):
-                        continue
-                    if accum > 1:
-                        micro_buf.append(np_batch)
-                        if len(micro_buf) < accum:
-                            continue
-                        batch = self._device_batch(stack_microbatches(
-                            [{k: b[k] for k in BATCH_KEYS} for b in micro_buf],
-                            self.tokenizer.pad_token_id))
-                        np_batch = micro_buf[-1]  # for the log line and the eval hook
-                        micro_buf = []
-                    else:
-                        batch = self._device_batch(np_batch)
+                with trace.span("train.update", update=step + 1):
+                    epoch, micro = next(updates)
+                    with trace.span("train.stack"):
+                        if accum > 1:
+                            batch = self._device_batch(stack_microbatches(
+                                [{k: b[k] for k in BATCH_KEYS} for b in micro],
+                                self.tokenizer.pad_token_id))
+                        else:
+                            batch = self._device_batch(micro[0])
+                    trace.mark(self.device)  # the copy waited for the card
+                    np_batch = micro[-1]  # for the log line and the eval hook
+                    real = sum(int(b["ids_mask"].sum()) + int(b["audio_mask"].sum())
+                               for b in micro)
+                    slots = batch["input_ids"].numel()
+                    trace.count("train.tokens_real", real)
+                    trace.count("train.tokens_slots", slots)
                     if profile_steps and step == profile_steps[0]:
                         self._start_profile()
-                    m = train_step(self.state, self.cfg, tcfg, batch, seed=tcfg.seed + 1)
+                    with trace.span("train.step", update=step + 1, tokens_real=real,
+                                    tokens_slots=slots):
+                        m = train_step(self.state, self.cfg, tcfg, batch, seed=tcfg.seed + 1)
                     if profile_steps and step == profile_steps[1]:
                         self._stop_profile()
                     step += 1
 
                     if step % tcfg.log_interval == 0:
-                        m = {k: float(v) for k, v in m.items()}
-                        dt = time.time() - t_last
-                        t_last = time.time()
-                        m["steps_per_s"] = tcfg.log_interval / max(dt, 1e-9)
-                        last_metrics = m
-                        self.history.append({"step": step, **m})
-                        if self.main:
-                            self.metrics.log(step, m)
-                            line = (f"{time.ctime()}: Epoch:{epoch}, Step:{step}, "
-                                    f"batch_size:{np_batch['input_ids'].shape[0]}, "
-                                    f"total_loss:{m['total_loss']:.5f}, "
-                                    f"audio_loss:{m['audio_loss']:.5f}, "
-                                    f"end_loss:{m['end_loss']:.5f}")
-                            print(line)
-                            self.metrics.text_log(line)
+                        with trace.span("train.log"):
+                            m = {k: float(v) for k, v in m.items()}
+                            dt = time.time() - t_last
+                            t_last = time.time()
+                            m["steps_per_s"] = tcfg.log_interval / max(dt, 1e-9)
+                            last_metrics = m
+                            self.history.append({"step": step, **m})
+                            if self.main:
+                                self.metrics.log(step, m)
+                                line = (f"{time.ctime()}: Epoch:{epoch}, Step:{step}, "
+                                        f"batch_size:{np_batch['input_ids'].shape[0]}, "
+                                        f"total_loss:{m['total_loss']:.5f}, "
+                                        f"audio_loss:{m['audio_loss']:.5f}, "
+                                        f"end_loss:{m['end_loss']:.5f}")
+                                print(line)
+                                self.metrics.text_log(line)
                         if self.eval_hook is not None:
                             self.eval_hook(self, step, np_batch)
 
@@ -204,7 +221,6 @@ class Trainer:
                         self._save(step, wait=True)
                         multihost.barrier()  # the checkpoint is on disk for every rank
                         return last_metrics
-                epoch += 1
         finally:
             loader.close()
             self.ckpt.close()
@@ -217,16 +233,29 @@ class Trainer:
         self.profiler = profile(activities=acts)
         self._sync()
         self.profiler.__enter__()
-        self._t_profile = time.perf_counter()
 
     def _stop_profile(self) -> None:
         self._sync()
-        self.profile_wall_s = time.perf_counter() - self._t_profile
         self.profiler.__exit__(None, None, None)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+
+def _updates(loader: PrefetchLoader, accum: int):
+    """(epoch, microbatches) of each update: the loader's non-empty batches
+    in order, `accum` at a time, an update's batches running across the end
+    of an epoch."""
+    epoch, buf = 0, []
+    while True:
+        for np_batch in loader.epoch_iter(epoch):
+            if len(np_batch["input_ids"]):
+                buf.append(np_batch)
+                if len(buf) == accum:
+                    yield epoch, buf
+                    buf = []
+        epoch += 1
 
 
 class _Saved:
